@@ -8,40 +8,57 @@ Usage, from the root of a checkout on a machine with an sm_90a card::
 Phases, each of which raises on failure (exit code 1):
 
 1. device: the card's name and power limit, torch/CUDA versions, TF32 off;
-2. build: compile the super-tile kernels K1/K2 from ``csrc/`` with nvcc;
+2. build: compile the kernels K1/K2 (``csrc/bsr_super.cu``) and K3
+   (``csrc/banded_ell.cu``) with nvcc, one process per source, in parallel;
 3. kernels: each kernel against its plain torch version and scipy, with
    CUDA-event times beside the plain version's and the COO SpMM's, on a road
    network at Vermont's scale and a hub graph at ca-AstroPh's scale (both
-   RCM-permuted), at b = 512 and at the main path's widths;
-4. main path, road graph: ``greedy_krylov`` break/make on the per-step lane
-   through K1 (f32) and K2 (f64), picks held against the plain COO backend;
-5. main path, hub graph: the fused lane with σ-shift, picks held against the
-   per-step lane, whose picks are held against the COO backend;
-6. replay: the inputs of the last launch of each kernel at each shape of
-   phases 4-5, rerun through the kernel and its plain version.
+   RCM-permuted), at b = 512 and at the main paths' widths (K3 at b = 1,
+   100, 512 in f32 and 100 in f64, on the road graph);
+4. greedy path, road graph: ``greedy_krylov`` break/make on the per-step
+   lane through K1 (f32) and K2 (f64), picks held against the COO backend;
+5. greedy path, hub graph: the fused lane with σ-shift, picks held against
+   the per-step lane, whose picks are held against the COO backend;
+6. budget path (Figures 1-4): the paper CLI's ``budget`` sweep at Q = 50 on
+   the road graph, written as a ``.mat`` into a temporary data root, which
+   runs K3; then ``greedy_krylov`` with the sweep's arguments, picks held
+   against the COO backend in f32 (its fused and per-step lanes) and f64;
+7. tables path (Tables 2-3): the CLI's ``unweighted`` protocol on the hub
+   graph (GKB on K1, MIOBI and EIGENV rescored, host f64 normalizers);
+8. replay: the inputs of the last launch of each kernel at each shape of
+   phases 4-7, rerun through the kernel and its plain version.
 
-The line before the last is a JSON object with one entry per kernel (launch
-counts of the main-path run, errors and times of phase 3); the last line is
-``{"ok": true, "device": {...}}``. Without CUDA the script exits with code 2
-and prints no result. Imports nothing of JAX.
+Each path (4-5, 6, 7) runs with every launch count set to 0 just before it
+and read just after. The line before the last is a JSON object with one
+entry per kernel (its count on the path that runs it, errors and times of
+phase 3); the last line is ``{"ok": true, "device": {...}}``. Without CUDA
+the script exits with code 2 and prints no result. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import csv
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
-SOURCE = "krylov_robustness_torch/csrc/bsr_super.cu"
+SOURCES = {"K1": "krylov_robustness_torch/csrc/bsr_super.cu",
+           "K2": "krylov_robustness_torch/csrc/bsr_super.cu",
+           "K3": "krylov_robustness_torch/csrc/banded_ell.cu"}
 REPLACES = {
     "K1": "krylov_robustness_tpu/ops/pallas_bsr_super.py:97",
     "K2": "krylov_robustness_tpu/ops/pallas_bsr_super.py:82",
+    "K3": "krylov_robustness_tpu/ops/pallas_spmm.py:51",
 }
 # relative to max|A x|: the first two mirror tests/test_pallas_bsr_super.py
 GATES = {"bf16x2": 3e-5, "bf16x3": 3e-7, "f32": 1e-6, "f64": 1e-12}
@@ -110,10 +127,12 @@ def phase_device() -> None:
 
 
 def phase_build():
-    from krylov_robustness_torch.ops import bsr_super
+    from krylov_robustness_torch.ops import cuda_build
 
-    path, seconds = bsr_super.build_kernels()
-    print(f"[build] {path.name} built in {seconds:.2f} s")
+    t0 = time.perf_counter()
+    for name, (path, seconds) in cuda_build.build_kernels().items():
+        print(f"[build] {path.name} built in {seconds:.2f} s")
+    print(f"[build] all sources in {time.perf_counter() - t0:.2f} s")
 
 
 # Kernel modes held against their plain versions in phase 3, per graph: every
@@ -127,6 +146,43 @@ KERNEL_CASES = {
              ("f64", (512, 500))),
     "hub": (("bf16x2", (500, 520)), ("f32", (500,))),
 }
+
+
+def hold(op, A, xh, dtype, dev, label: str, where: str):
+    """One product through ``op``'s kernel and through its plain version, on
+    x = ``xh`` rounded to ``dtype``: each held against scipy's f64 A·x, and
+    the two against each other, within ``GATES[label]`` of max|A·x|.
+    Returns (x on the card, the errors as text, max|kernel − plain|)."""
+    if dtype == torch.float32:
+        xh = xh.astype(np.float32).astype(np.float64)
+    ref = A @ xh
+    scale = float(np.abs(ref).max())
+    x = torch.as_tensor(xh, device=dev).to(dtype)
+    yk = op.matmul(x)
+    yp = op.matmul_plain(x)
+    torch.cuda.synchronize()
+    err_k = float(np.abs(yk.double().cpu().numpy() - ref).max()) / scale
+    err_p = float(np.abs(yp.double().cpu().numpy() - ref).max()) / scale
+    diff = float((yk - yp).abs().max())
+    gate = GATES[label]
+    check(err_k <= gate, f"{where} kernel error {err_k:.3e}")
+    check(err_p <= gate, f"{where} plain error {err_p:.3e}")
+    check(diff <= gate * scale, f"{where} kernel vs plain {diff / scale:.3e}")
+    return x, (f"rel err vs scipy kernel {err_k:.3e} plain {err_p:.3e}; "
+               f"kernel-plain {diff / scale:.3e} (gate {gate:.0e})"), diff
+
+
+def hold_set_edge(op, Ap, x64, dev, label: str, where: str) -> None:
+    """A frozen-structure edit on the card, then a product held as in
+    :func:`hold` against scipy on the edited matrix."""
+    C = sp.coo_matrix(sp.tril(Ap, -1))
+    i, j = int(C.row[7]), int(C.col[7])
+    op.set_edge(i, j, 0.0)
+    A2 = Ap.tolil()
+    A2[i, j] = A2[j, i] = 0.0
+    _, errs, _ = hold(op, sp.csr_matrix(A2), x64[:, :8], torch.float32, dev,
+                      label, f"{where} after set_edge")
+    print(f"[kernels] {where} set_edge({i},{j}) then product: {errs}")
 
 
 def phase_kernels(dev, graphs) -> dict:
@@ -152,18 +208,8 @@ def phase_kernels(dev, graphs) -> dict:
             mode, dtype = MODES[label]
             op = SuperBsrOperator(Ap, dtype=dtype, device=dev, mode=mode)
             for b in widths:
-                xh = x64[:, :b]
-                if dtype == torch.float32:
-                    xh = xh.astype(np.float32).astype(np.float64)
-                ref = Ap @ xh
-                scale = float(np.abs(ref).max())
-                x = torch.as_tensor(xh, device=dev).to(dtype)
-                yk = op.matmul(x)
-                yp = op.matmul_plain(x)
-                torch.cuda.synchronize()
-                err_k = float(np.abs(yk.double().cpu().numpy() - ref).max())
-                err_p = float(np.abs(yp.double().cpu().numpy() - ref).max())
-                diff = float((yk - yp).abs().max())
+                x, errs, diff = hold(op, Ap, x64[:, :b], dtype, dev, label,
+                                     f"{name} {label} b={b}")
                 ms = cuda_ms(lambda: op.matmul(x))
                 plain_ms = cuda_ms(lambda: op.matmul_plain(x))
                 rate = nnz * b / (ms * 1e-3) / 1e9
@@ -171,37 +217,65 @@ def phase_kernels(dev, graphs) -> dict:
                 print(f"[kernels] {name} {label}: n={n} nnz={nnz} b={b} "
                       f"tiles={op.ntiles} kernel {ms:.4f} ms ({rate:.2f} "
                       f"Gnnz·b/s) plain {plain_ms:.4f} ms ({plain_rate:.2f} "
-                      f"Gnnz·b/s); rel err vs scipy kernel {err_k / scale:.3e} "
-                      f"plain {err_p / scale:.3e}; kernel-plain "
-                      f"{diff / scale:.3e} (gate {GATES[label]:.0e})")
-                where = f"{name} {label} b={b}"
-                check(err_k <= GATES[label] * scale,
-                      f"{where} kernel error {err_k / scale:.3e}")
-                check(err_p <= GATES[label] * scale,
-                      f"{where} plain error {err_p / scale:.3e}")
-                check(diff <= GATES[label] * scale,
-                      f"{where} kernel vs plain {diff / scale:.3e}")
+                      f"Gnnz·b/s); {errs}")
                 stats[name, label, b] = {"max_abs_err": diff, "ms": ms,
                                          "plain_ms": plain_ms}
-                del x, yk, yp
+                del x
             if (name, label) == ("road", "bf16x3"):
-                # frozen-structure edit on the card, then a product
-                C = sp.coo_matrix(sp.tril(Ap, -1))
-                i, j = int(C.row[7]), int(C.col[7])
-                op.set_edge(i, j, 0.0)
-                A2 = Ap.tolil()
-                A2[i, j] = A2[j, i] = 0.0
-                xh = x64[:, :8].astype(np.float32).astype(np.float64)
-                ref2 = sp.csr_matrix(A2) @ xh
-                y2 = op.matmul(torch.as_tensor(xh, dtype=torch.float32,
-                                               device=dev))
-                err2 = float(np.abs(y2.double().cpu().numpy() - ref2).max()
-                             ) / float(np.abs(ref2).max())
-                print(f"[kernels] set_edge({i},{j}) then product: rel err "
-                      f"{err2:.3e}")
-                check(err2 <= GATES[label], f"set_edge product error {err2:.3e}")
+                hold_set_edge(op, Ap, x64, dev, label, "K1")
             del op
             torch.cuda.empty_cache()
+    return stats
+
+
+# K3's widths: a vector, the budget sweep's 2·Q = 100 at Q = 50, and b = 512
+BANDED_CASES = ((torch.float32, "f32", 1), (torch.float32, "f32", 100),
+                (torch.float32, "f32", 512), (torch.float64, "f64", 100))
+
+
+def phase_banded_kernel(dev, A) -> dict:
+    """K3 on the RCM-permuted road graph against its plain version and
+    scipy, with CUDA-event times of the kernel, the plain version and the
+    COO SpMM at the same width; then a frozen-structure edit and a
+    product."""
+    from krylov_robustness_torch.ops.banded_spmm import (
+        BandedEllOperator,
+        num_windows,
+        rcm_bandwidth,
+        rcm_permutation,
+    )
+    from krylov_robustness_torch.ops.sparse import CooMatrix
+
+    perm = rcm_permutation(A)
+    bw = rcm_bandwidth(A, perm)
+    Ap = A[perm, :].tocsc()[:, perm].tocsr()
+    n, nnz = Ap.shape[0], Ap.nnz
+    x64 = np.random.default_rng(1).standard_normal((n, 512))
+    stats = {}
+    ops = {}
+    for dtype, label, b in BANDED_CASES:
+        if label not in ops:
+            ops[label] = (BandedEllOperator(Ap, dtype=dtype, device=dev),
+                          CooMatrix.from_scipy(Ap, dtype=dtype, device=dev))
+        op, coo = ops[label]
+        x, errs, diff = hold(op, Ap, x64[:, :b], dtype, dev, label,
+                             f"road K3 {label} b={b}")
+        ms = cuda_ms(lambda: op.matmul(x))
+        plain_ms = cuda_ms(lambda: op.matmul_plain(x))
+        coo_ms = cuda_ms(lambda: coo.matmul(x))
+        # HBM bytes of one product: x read once, y written, the two tables
+        esize = x.element_size()
+        mbytes = (2 * n * b * esize + op.K * n * (4 + esize)) / 1e6
+        print(f"[kernels] road K3 {label}: n={n} nnz={nnz} K={op.K} bw={bw} "
+              f"windows={num_windows(bw)} b={b} kernel {ms:.4f} ms "
+              f"({nnz * b / (ms * 1e-3) / 1e9:.2f} Gnnz·b/s, {mbytes:.1f} MB "
+              f"→ {mbytes / ms:.1f} GB/s) plain {plain_ms:.4f} ms coo "
+              f"{coo_ms:.4f} ms; {errs}")
+        stats["road", f"K3 {label}", b] = {"max_abs_err": diff, "ms": ms,
+                                           "plain_ms": plain_ms}
+    hold_set_edge(ops["f32"][0], Ap, x64, dev, "f32", "K3")
+    del ops
+    torch.cuda.empty_cache()
     return stats
 
 
@@ -213,10 +287,11 @@ class MainPathCapture:
     wrappers keep their own launch counts; this adds none."""
 
     def __init__(self):
-        from krylov_robustness_torch.ops import bsr_super
+        from krylov_robustness_torch.ops import banded_spmm, bsr_super
 
-        self.mod = bsr_super
+        self.mod, self.ell = bsr_super, banded_spmm
         self.k1, self.k2 = bsr_super.tile_spmm_bf16, bsr_super.tile_spmm_full
+        self.k3 = banded_spmm.ell_spmm
         self.kept = {}
 
     def _keep(self, key, args):
@@ -235,18 +310,35 @@ class MainPathCapture:
                        (atiles, slab, sup_ptr, blkmask, x))
             return self.k2(atiles, slab, sup_ptr, blkmask, x)
 
+        def k3(cols, vals, x):
+            label = "f32" if x.dtype == torch.float32 else "f64"
+            self._keep(("K3", label, cols.shape[0], *x.shape),
+                       (cols, vals, x))
+            return self.k3(cols, vals, x)
+
         self.mod.tile_spmm_bf16, self.mod.tile_spmm_full = k1, k2
+        self.ell.ell_spmm = k3
         return self
 
     def __exit__(self, *exc):
         self.mod.tile_spmm_bf16, self.mod.tile_spmm_full = self.k1, self.k2
+        self.ell.ell_spmm = self.k3
 
     def replay(self) -> dict:
         """Each kept launch, rerun through its kernel and its plain version;
         returns the largest kernel-plain difference per kernel."""
         worst = {}
-        for key, (atiles, slab, sup_ptr, blkmask, x) in self.kept.items():
-            kernel, label, ntile, n, b = key
+        for key, args in self.kept.items():
+            kernel, label, size, n, b = key
+            if kernel == "K3":
+                cols, vals, x = args
+                yk = self.k3(cols, vals, x)
+                yp = self.ell.ell_spmm_plain(cols.long(), vals, x)
+                worst[kernel] = max(worst.get(kernel, 0.0), self._check(
+                    f"{kernel} {label} K={size} n={n} b={b}", label, x, yk,
+                    yp))
+                continue
+            atiles, slab, sup_ptr, blkmask, x = args
             nsup, tile_r = sup_ptr.numel() - 1, atiles.shape[1]
             sup = torch.repeat_interleave(
                 torch.arange(nsup, device=x.device), torch.diff(sup_ptr))
@@ -259,17 +351,21 @@ class MainPathCapture:
                 yk = self.k2(atiles, slab, sup_ptr, blkmask, x)
                 yp = self.mod.tile_spmm_full_plain(atiles, slab, sup, x,
                                                    nsup * tile_r)
-            diff = float((yk - yp).abs().max())
-            scale = float(yp.abs().max())
-            print(f"[replay] {kernel} {label} tiles={ntile} n={n} b={b}, "
-                  f"x {float((x != 0).float().mean()):.3f} nonzero: "
-                  f"kernel-plain {diff / scale:.3e} (gate "
-                  f"{GATES[label]:.0e})")
-            check(diff <= GATES[label] * scale,
-                  f"main-path {kernel} {label} b={b}: kernel vs plain "
-                  f"{diff / scale:.3e}")
-            worst[kernel] = max(worst.get(kernel, 0.0), diff)
+            worst[kernel] = max(worst.get(kernel, 0.0), self._check(
+                f"{kernel} {label} tiles={size} n={n} b={b}", label, x, yk,
+                yp))
         return worst
+
+    @staticmethod
+    def _check(where, label, x, yk, yp) -> float:
+        diff = float((yk - yp).abs().max())
+        scale = float(yp.abs().max())
+        print(f"[replay] {where}, x {float((x != 0).float().mean()):.3f} "
+              f"nonzero: kernel-plain {diff / scale:.3e} (gate "
+              f"{GATES[label]:.0e})")
+        check(diff <= GATES[label] * scale,
+              f"main-path {where}: kernel vs plain {diff / scale:.3e}")
+        return diff
 
 
 def hub_graph():
@@ -436,39 +532,205 @@ def phase_hub(dev, A) -> None:
     same_picks_or_floor("hub K1 vs coo", rs, rc, tol)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    from krylov_robustness_torch.ops import bsr_super
+def write_mat(root: Path, collection: str, name: str, A) -> Path:
+    """A graph as a v5 ``.mat`` (a ``Problem`` struct holding A) in the
+    loader's layout under a data root (graphs/io.py)."""
+    import scipy.io
 
-    dev = torch.device("cuda", 0)
+    path = root / "datasets_paper" / collection / f"{name}.mat"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    scipy.io.savemat(str(path), {"Problem": {"A": sp.csc_matrix(A)}})
+    return path
+
+
+def run_cli(argv) -> float:
+    """The port's paper CLI, in this process (so that the launch counts
+    see its kernels); returns its wall seconds."""
+    from krylov_robustness_torch.experiments.__main__ import main as cli
+
+    print(f"[cli] python -m krylov_robustness_torch.experiments "
+          f"{' '.join(argv)}")
+    t0 = time.perf_counter()
+    check(cli(argv) == 0, f"the CLI failed: {argv}")
+    return time.perf_counter() - t0
+
+
+def phase_budget(dev, A, root: Path) -> None:
+    """Figures 1-4: the budget sweep at Q = 50 on the road graph through the
+    CLI (K3, per-step lane), then greedy_krylov with the sweep's arguments
+    held against the COO backend."""
+    from krylov_robustness_torch.funm.normest import normest2_host
+    from krylov_robustness_torch.graphs.centrality import (
+        compute_centrality_host,
+    )
+    from krylov_robustness_torch.graphs.preprocess import (
+        preprocess_unweighted,
+    )
+    from krylov_robustness_torch.ops import banded_spmm
+    from krylov_robustness_torch.optimize.greedy import greedy_krylov
+
+    name = "road_standin"
+    write_mat(root, "Transport", name, A)
+    out = root / "out"
+    before = banded_spmm.launches_ell
+    wall = run_cli(["--cuda", "--out-dir", str(out), "budget", "--mode",
+                    "break", "--datasets", name, "--search-spaces", "50",
+                    "--budgets", "5", "10"])
+    grew = banded_spmm.launches_ell - before
+    with open(next(out.glob("results_unweighted_break_budget_*.csv")),
+              newline="") as f:
+        rows = list(csv.DictReader(f))
+    for r in rows:
+        print(f"[budget] {r['method']} {r['dataset']} n={r['n']} m={r['m']} "
+              f"searchspace={r['searchspace_size']} k={r['budget_size']} "
+              f"time={float(r['time']):.3f} s "
+              f"tr_variation={float(r['tr_variation']):.6e}")
+    print(f"[budget] CLI wall {wall:.2f} s, K3 launches +{grew}")
+    check(grew > 0, "budget sweep: K3 was not launched")
+    check(len(rows) == 2, f"budget sweep wrote {len(rows)} rows, not 2")
+    check(all(float(r["time"]) > 0 and float(r["tr_variation"]) < 0
+              for r in rows), "budget sweep: a row has time <= 0 or "
+          "tr_variation >= 0")
+
+    # the sweep's own arguments (experiments/unweighted.py::run_budget_sweep)
+    A = preprocess_unweighted(A)
+    c = compute_centrality_host(A, "eig")
+    lognrm = float(normest2_host(A, tol=1e-2))
+    tol = 1e-6 * float(np.exp(lognrm))
+    Q = min(A.nnz // 2 - 10, 50)
+    kw = dict(order="min", tol=tol, mode="break", device=dev)
+    r = greedy_krylov(A, 10, Q, c, dtype=torch.float32, fused_steps=10, **kw)
+    # the sweep's request on COO takes the fused lane (COO has the fused
+    # hooks); the per-step COO run holds K3 against COO on the same lane
+    rc = greedy_krylov(A, 10, Q, c, dtype=torch.float32, fused_steps=10,
+                       backend="coo", **kw)
+    rs = greedy_krylov(A, 10, Q, c, dtype=torch.float32, fused_steps=0,
+                       backend="coo", **kw)
+    print(f"[budget] break k=10 Q={Q} f32 auto: {r.operator}, fused steps "
+          f"{r.fused_accepted}, per-step ms {step_ms(r)}; coo fused_steps=10 "
+          f"(fused steps {rc.fused_accepted}) per-step ms {step_ms(rc)}; coo "
+          f"fused_steps=0 per-step ms {step_ms(rs)}")
+    print(f"[budget] median step: K3 per-step "
+          f"{float(np.median(r.per_step_time)) * 1e3:.2f} ms, coo per-step "
+          f"{float(np.median(rs.per_step_time)) * 1e3:.2f} ms, coo fused "
+          f"{float(np.median(rc.per_step_time)) * 1e3:.2f} ms")
+    check(r.operator == "BandedEllOperator", f"budget ran on {r.operator}")
+    check(r.fused_accepted == 0, "budget: the banded operator ran fused")
+    check(rc.operator == "CooMatrix" and rs.operator == "CooMatrix",
+          f"coo runs used {rc.operator}, {rs.operator}")
+    same_picks_or_floor("budget K3 vs coo fused", r, rc, tol,
+                        fused_floor(A, lognrm, 0.0))
+    same_picks_or_floor("budget K3 vs coo per-step", r, rs, tol)
+    r64 = greedy_krylov(A, 5, Q, c, dtype=torch.float64, backend="banded",
+                        **kw)
+    rc64 = greedy_krylov(A, 5, Q, c, dtype=torch.float64, backend="coo", **kw)
+    print(f"[budget] break k=5 f64 banded: {r64.operator}, per-step ms "
+          f"{step_ms(r64)}; coo per-step ms {step_ms(rc64)}")
+    check(r64.operator == "BandedEllOperator", f"f64 ran on {r64.operator}")
+    check(np.array_equal(r64.edges, rc64.edges),
+          f"f64 K3 picks {r64.edges.tolist()} != coo {rc64.edges.tolist()}")
+    print("[budget] f64 K3 vs coo: picks identical")
+
+
+def phase_tables(A, root: Path) -> None:
+    """Tables 2-3: the CLI's unweighted protocol on the hub graph: GKB, MIOBI
+    and EIGENV rows on host f64 normalizers, and the intersections row."""
+    name = "hub_standin"
+    write_mat(root, "Misc", name, A)
+    out = root / "out"
+    wall = run_cli(["--cuda", "--out-dir", str(out), "unweighted", "--mode",
+                    "break", "--datasets", name, "--k", "5"])
+    path = next(p for p in out.glob("results_unweighted_break_*.jsonl")
+                if "budget" not in p.name and "intersections" not in p.name)
+    rows = [json.loads(line) for line in open(path) if line.strip()]
+    for r in rows:
+        print(f"[tables] {r['method']} {r['dataset']} n={r['n']} m={r['m']} "
+              f"time={r['time']:.3f} s tr_variation={r['tr_variation']:.6e} "
+              f"norm_lane={r['norm_lane']} sigma={r['sigma']:.4f}")
+    with open(next(out.glob("results_unweighted_break_intersections_*.csv")),
+              newline="") as f:
+        inter = list(csv.DictReader(f))
+    print(f"[tables] intersections {inter}, CLI wall {wall:.2f} s")
+    check([r["method"] for r in rows] == ["GREEDY_KRYLOV_BREAK", "MIOBI",
+                                          "EIGENV"],
+          f"tables rows {[r['method'] for r in rows]}")
+    check(all(np.isfinite(r["tr_variation"]) and r["tr_variation"] < 0
+              for r in rows), "tables: a tr_variation is not finite and < 0")
+    check(all(r["norm_lane"] == "host-f64" and r["sigma"] > 0 for r in rows),
+          "tables: a row is not on the host f64 lane with σ > 0")
+    check(len(inter) == 1 and inter[0]["dataset"] == name,
+          f"tables: intersections {inter}")
+
+
+def launch_counts() -> dict:
+    from krylov_robustness_torch.ops import banded_spmm, bsr_super
+
+    return {"K1": bsr_super.launches_bf16, "K2": bsr_super.launches_f32,
+            "K3": banded_spmm.launches_ell}
+
+
+def drive(path: str, fn, *args) -> dict:
+    """One main path, with every launch count set to 0 just before it and
+    read just after; returns the counts."""
+    from krylov_robustness_torch.ops import banded_spmm, bsr_super
+
+    bsr_super.launches_bf16 = bsr_super.launches_f32 = 0
+    banded_spmm.launches_ell = 0
+    t0 = time.perf_counter()
+    fn(*args)
+    counts = launch_counts()
+    print(f"[{path}] launches {counts}, {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def greedy_path(dev, graphs) -> None:
+    phase_road(dev, graphs["road"])
+    phase_hub(dev, graphs["hub"])
+
+
+def run(dev, root: Path) -> int:
     phase_device()
     phase_build()
     graphs = {"road": sp.csr_matrix(road_graph(), dtype=np.float64),
               "hub": hub_graph()}
     stats = phase_kernels(dev, graphs)
+    stats.update(phase_banded_kernel(dev, graphs["road"]))
     with MainPathCapture() as capture:
-        # the main path's launches: counts zeroed just before, read just after
-        bsr_super.launches_bf16 = bsr_super.launches_f32 = 0
-        phase_road(dev, graphs["road"])
-        phase_hub(dev, graphs["hub"])
-        launches = {"K1": bsr_super.launches_bf16,
-                    "K2": bsr_super.launches_f32}
-    check(all(launches.values()), f"a kernel was not launched: {launches}")
+        greedy = drive("greedy", greedy_path, dev, graphs)
+        budget = drive("budget", phase_budget, dev, graphs["road"], root)
+        tables = drive("tables", phase_tables, graphs["hub"], root)
+    check(greedy["K1"] and greedy["K2"],
+          f"greedy path: a kernel was not launched: {greedy}")
+    check(budget["K3"] > 0, f"budget path: K3 was not launched: {budget}")
+    check(tables["K1"] > 0, f"tables path: K1 was not launched: {tables}")
     capture.replay()
+    entries = (("K1", "K1 tile_spmm_bf16 (bf16x2)", greedy,
+                ("road", "bf16x2", 512)),
+               ("K2", "K2 tile_spmm_full (f64)", greedy,
+                ("road", "f64", 512)),
+               ("K3", "K3 ell_spmm (f32)", budget, ("road", "K3 f32", 100)))
     print(json.dumps({"kernels": [
-        {"name": "K1 tile_spmm_bf16 (bf16x2)", "route": "cuda",
-         "source": SOURCE, "replaces": REPLACES["K1"],
-         "launches": launches["K1"], **stats["road", "bf16x2", 512]},
-        {"name": "K2 tile_spmm_full (f64)", "route": "cuda",
-         "source": SOURCE, "replaces": REPLACES["K2"],
-         "launches": launches["K2"], **stats["road", "f64", 512]},
-    ]}))
+        {"name": name, "route": "cuda", "source": SOURCES[k],
+         "replaces": REPLACES[k], "launches": counts[k], **stats[key]}
+        for k, name, counts, key in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    # the CLI reads its data root from the environment when graphs/io.py is
+    # first imported: point it at a temporary root before anything does
+    root = Path(tempfile.mkdtemp(prefix="krt_smoke_"))
+    os.environ["KRYLOV_ROBUSTNESS_DATA"] = str(root)
+    try:
+        return run(torch.device("cuda", 0), root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 if __name__ == "__main__":

@@ -5,18 +5,27 @@ tree and public functions, imports ``torch``, numpy and scipy, and never JAX.
 Every public entry that creates tensors takes an explicit ``device``; nothing
 picks one by itself.
 
-Ported so far (the greedy edge break/make main path):
+Ported so far (the greedy edge break/make main path and the paper driver):
 
-  ops       ``CooMatrix`` + plain gather/``index_add_`` SpMM, the super-tile
-            block-sparse operator with its hand-written Hopper kernels
-            (``csrc/bsr_super.cu``), RCM helpers, the Sturm banded eigensolver
-  funm      scalar functions, dense trace differences, host 2-norm estimate
-  krylov    batched block Lanczos
-  updates   batched Δtrace f(A + U B Uᵀ) scoring of candidate edges
-  optimize  greedy break/make, per-step and fused multi-step lanes
-  graphs    preprocessing, candidate selection, host centrality
-  utils     device resolution, finite checks
-  interop   build port objects from arrays exported by the JAX package
+  ops          ``CooMatrix`` + plain gather/``index_add_`` SpMM, the
+               super-tile block-sparse operator and the banded-ELL operator
+               with their hand-written Hopper kernels (``csrc/``, built by
+               ``ops/cuda_build.py``), RCM helpers, the Sturm banded
+               eigensolver
+  funm         scalar functions, dense trace differences, norm estimates,
+               the Taylor ``expmv`` action, stochastic trace(exp(A))
+  krylov       batched block Lanczos
+  updates      batched Δtrace f(A + U B Uᵀ) scoring of candidate edges,
+               edge sets as low-rank factors
+  optimize     greedy break/make, per-step and fused multi-step lanes
+  graphs       dataset loaders, preprocessing, candidate selection,
+               centralities
+  baselines    MIOBI and EIGENV
+  experiments  the Tables 2-3 and Figures 1-4 drivers and their CLI
+               (``python -m krylov_robustness_torch.experiments``)
+  utils        device resolution, finite checks, configs, result logs,
+               checkpoints
+  interop      build port objects from arrays exported by the JAX package
 """
 
 __version__ = "0.1.0"

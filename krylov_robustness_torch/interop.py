@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from .krylov.lanczos import LanczosState
+from .ops.banded_spmm import BandedEllOperator
 from .ops.bsr_super import SuperBsrOperator
 from .ops.sparse import CooMatrix
 from .utils.device import float_dtype, resolve_device
@@ -44,6 +45,33 @@ def super_bsr_from_arrays(atiles, slab, sup, start, entry_tile, entry_offset,
     return SuperBsrOperator.from_packed(
         tiles, (slab, sup, start), entry_tile, entry_offset, entry_rc, n,
         n_pad, mode, dtype)
+
+
+def banded_ell_from_arrays(relT, winT, valT, Wv: int, n: int, entry_pos,
+                           device) -> BandedEllOperator:
+    """``BandedEllOperator`` from the JAX operator's lane-window tables
+    (``relT``, ``winT``, ``valT``, each (K, n_lanes)), its ``Wv`` attribute,
+    ``n`` and its entry positions (ks, rows). A real slot's column is decoded
+    as col = (win − Wv + r//128)·128 + rel; every other slot becomes a padding
+    slot (val 0, col r)."""
+    dev = resolve_device(device)
+    rel = np.array(relT, np.int64)[:, :n]
+    win = np.array(winT, np.int64)[:, :n]
+    vals = np.array(valT)[:, :n]
+    ks, rows = (np.array(a, np.int64) for a in entry_pos)
+    K = rel.shape[0]
+    r = np.arange(n)
+    decoded = (win - Wv + r // 128) * 128 + rel
+    cols = np.tile(r.astype(np.int32), (K, 1))
+    cols[ks, rows] = decoded[ks, rows]
+    real = np.zeros((K, n), bool)
+    real[ks, rows] = True
+    vals = np.where(real, vals, 0)
+    dtype = torch.float32 if vals.dtype == np.float32 else torch.float64
+    return BandedEllOperator.from_tables(
+        torch.as_tensor(cols, device=dev),
+        torch.as_tensor(vals, device=dev).to(dtype), (ks, rows),
+        decoded[ks, rows])
 
 
 def lanczos_state_from_arrays(v_prev, v_cur, alive, device) -> LanczosState:

@@ -18,25 +18,20 @@ Two kernels in ``csrc/bsr_super.cu`` compute ``A @ x`` over that packing:
 Beside each kernel is its plain torch version (a batched tile product plus
 ``index_add_`` by super-row). :meth:`SuperBsrOperator.matmul` runs the plain
 version for CPU tensors only; a CUDA tensor launches the kernel or raises.
-The kernels are built with ``nvcc`` at first use into ``build/kernels/``
-(keyed on a hash of the source and flags) and bound with ``ctypes``.
+The kernels are built with ``nvcc`` at first use (:mod:`.cuda_build`) and
+bound with ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
 from ..utils.device import float_dtype, resolve_device
+from . import cuda_build
 
 BLK = 128
 SUP = 4  # 128-row blocks per super-row (tile height 512)
@@ -54,10 +49,6 @@ MODES = ("f32", "bf16x2", "bf16x3")
 launches_bf16 = 0
 launches_f32 = 0
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "bsr_super.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
 _LIB = None
 
 
@@ -176,39 +167,11 @@ def tile_spmm_full_plain(atiles, slab, sup, x, n_pad: int):
     return y.view(n_pad, b)[:n]
 
 
-# -- kernel build and binding ----------------------------------------------
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the super-tile kernels need the "
-                           "CUDA toolkit to build")
-    return path
-
-
-def build_kernels() -> tuple[Path, float]:
-    """Compile ``csrc/bsr_super.cu`` for sm_90a into ``build/kernels/`` unless
-    a library built from the same source and flags is there. Returns (library
-    path, seconds spent compiling — 0.0 when it was already built)."""
-    src = _SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = _BUILD_DIR / f"libbsr_super_{digest[:16]}.so"
-    if lib.exists():
-        return lib, 0.0
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SOURCE.name}:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, time.perf_counter() - t0
-
-
+# -- kernel binding ----------------------------------------------------------
 def _library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build_kernels()[0]))
+        lib = cuda_build.library("bsr_super")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.krt_bsr_super_bf16.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
         for name in ("krt_bsr_super_f32", "krt_bsr_super_f64"):
@@ -250,11 +213,6 @@ def _check_launch_args(atiles, slab, sup_ptr, blkmask, x, store, compute):
     return nsup, tile_r, tile_c
 
 
-def _raise_on(code: int, name: str):
-    if code != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {code}")
-
-
 def tile_spmm_bf16(atiles, slab, sup_ptr, blkmask, x, terms: int):
     """K1: y (n, b) f32 = A @ x for bf16 tiles and f32 x (n, b), x split
     into ``terms`` bf16 parts inside the kernel."""
@@ -272,7 +230,7 @@ def tile_spmm_bf16(atiles, slab, sup_ptr, blkmask, x, terms: int):
             atiles.data_ptr(), slab.data_ptr(), sup_ptr.data_ptr(),
             blkmask.data_ptr(), x.data_ptr(), y.data_ptr(), nsup, tile_r,
             tile_c, n, b, terms, stream)
-    _raise_on(code, "krt_bsr_super_bf16")
+    cuda_build.raise_on(code, "krt_bsr_super_bf16")
     launches_bf16 += 1
     return y
 
@@ -294,7 +252,7 @@ def tile_spmm_full(atiles, slab, sup_ptr, blkmask, x):
         code = fn(atiles.data_ptr(), slab.data_ptr(), sup_ptr.data_ptr(),
                   blkmask.data_ptr(), x.data_ptr(), y.data_ptr(), nsup,
                   tile_r, tile_c, n, b, stream)
-    _raise_on(code, fn.__name__)
+    cuda_build.raise_on(code, fn.__name__)
     launches_f32 += 1
     return y
 

@@ -145,9 +145,9 @@ class _FrozenStructureMatrix:
         self.mat = dataclasses.replace(self.mat, vals=vals)
 
 
-class _BsrAdapter:
-    """Greedy-facing adapter over the RCM-permuted super-tile operator: maps
-    original node ids through the permutation for scoring and edits."""
+class _BandedAdapter:
+    """Greedy-facing adapter over an RCM-permuted operator: maps original
+    node ids through the permutation for scoring and edits."""
 
     def __init__(self, op, pinv: np.ndarray):
         self.op = op
@@ -172,6 +172,11 @@ class _BsrAdapter:
             shape=(self.op.n, self.op.n)).tocsr()
         out.eliminate_zeros()
         return out
+
+
+class _BsrAdapter(_BandedAdapter):
+    """The same adapter over the super-tile operator, with the fused lane's
+    hooks (the banded operator has none, so it never runs fused blocks)."""
 
     # -- fused multi-step hooks: flat view over the tile storage ------------
     def fused_state(self):
@@ -257,35 +262,42 @@ def krylov_miobi(
         per_step_time=np.asarray(times))
 
 
-def _use_super_tiles(A, top, Q: int, mode: str, backend: str,
-                     device: torch.device):
-    """The super-tile decision of the JAX package (greedy.py:595-641), with
-    the banded backend's share taken by the super-tile kernel on CUDA until
-    the banded kernel is ported. Returns (use_bsr, perm, A_aug)."""
-    from ..ops.banded_spmm import rcm_bandwidth, rcm_permutation
+def choose_operator(A, top, Q: int, mode: str, backend: str,
+                    device: torch.device):
+    """The scored operator, as the JAX package chooses it
+    (greedy.py:595-648), with "the device is CUDA" in place of "the backend
+    is the TPU": super tiles for ``backend='bsr'``, or for ``'auto'`` at
+    2Q ≥ 256, while the bf16 tile storage fits ``BSR_STORAGE_CAP``;
+    otherwise, in break mode only, the banded operator while the RCM band
+    fits (``banded_spmm.banded_fits``); otherwise COO. ``'coo'``, and
+    ``'auto'`` off CUDA, take COO. Allocates nothing on the device.
+
+    Returns (kind, perm, A_aug): kind is 'bsr', 'banded' or 'coo'; A_aug is
+    A with make mode's candidate slots (super tiles only)."""
+    from ..ops.banded_spmm import banded_fits, rcm_permutation
     from ..ops.bsr_super import TILE_C, TILE_R, super_tile_count
 
     if backend == "coo" or (backend == "auto" and device.type != "cuda"):
-        return False, None, None
+        return "coo", None, None
     perm = rcm_permutation(A)
-    wide_batch = 2 * Q >= 256
-    if backend == "auto" and not wide_batch:
-        # the JAX package runs narrow break sweeps with a narrow RCM band on
-        # its banded kernel; the port takes the super-tile kernel there
-        bw = rcm_bandwidth(A, perm)
-        if mode != "break" or 2 * ((bw + 127) // 128 + 1) - 1 > 17:
-            return False, None, None
-    A_aug = A
-    if mode == "make":
-        # candidate slots as explicit zeros (both triangles): greedy
-        # additions are pure value updates
-        C0 = sp.coo_matrix(A)
-        r = np.concatenate([C0.row, top[:, 0], top[:, 1]])
-        c = np.concatenate([C0.col, top[:, 1], top[:, 0]])
-        v = np.concatenate([C0.data, np.zeros(2 * len(top), C0.data.dtype)])
-        A_aug = sp.coo_matrix((v, (r, c)), shape=A.shape).tocsr()
-    ntile = super_tile_count(A_aug, perm)
-    return ntile * TILE_R * TILE_C * 2 <= BSR_STORAGE_CAP, perm, A_aug
+    if backend == "bsr" or (backend == "auto" and 2 * Q >= 256):
+        A_aug = A
+        if mode == "make":
+            # candidate slots as explicit zeros (both triangles): greedy
+            # additions are pure value updates
+            C0 = sp.coo_matrix(A)
+            r = np.concatenate([C0.row, top[:, 0], top[:, 1]])
+            c = np.concatenate([C0.col, top[:, 1], top[:, 0]])
+            v = np.concatenate([C0.data,
+                                np.zeros(2 * len(top), C0.data.dtype)])
+            A_aug = sp.coo_matrix((v, (r, c)), shape=A.shape).tocsr()
+        # bf16 tile storage (mode auto picks bf16x2 for 0/±1 adjacency)
+        if super_tile_count(A_aug, perm) * TILE_R * TILE_C * 2 \
+                <= BSR_STORAGE_CAP:
+            return "bsr", perm, A_aug
+    if mode == "break" and banded_fits(A, perm):
+        return "banded", perm, None
+    return "coo", None, None
 
 
 def greedy_krylov(
@@ -315,11 +327,12 @@ def greedy_krylov(
     the surviving Q candidates and commit the best edge.
 
     ``backend``: 'coo' (gather + ``index_add_`` SpMM), 'bsr' (RCM +
-    super-tile kernels K1/K2), or 'auto' — super tiles on CUDA where the JAX
-    package would run a Pallas kernel, COO otherwise. 'banded', 'sharded' and
-    'sharded_bsr' are not ported yet. The super-tile operator works in a
-    relabeled node space; candidate selection and reported edges stay in the
-    original labeling.
+    super-tile kernels K1/K2), 'banded' (RCM + banded-ELL kernel K3, break
+    mode), or 'auto' — on CUDA the JAX package's choice on the TPU
+    (:func:`choose_operator`), COO otherwise. 'sharded' and 'sharded_bsr' are
+    not ported yet. The super-tile and banded operators work in a relabeled
+    node space; candidate selection and reported edges stay in the original
+    labeling.
 
     ``fused_steps`` > 1 runs that many budget steps per block (:mod:`.fused`)
     with per-step replay of straggler steps; ``None`` resolves per dtype (10
@@ -333,10 +346,10 @@ def greedy_krylov(
         require_full_f32_matmul()
     if fused_steps is None:
         fused_steps = 10 if dtype == torch.float32 else 0
-    if backend in ("banded", "sharded", "sharded_bsr"):
+    if backend in ("sharded", "sharded_bsr"):
         raise NotImplementedError(
             f"backend={backend!r} is not ported yet (ROADMAP.md, Queue 1)")
-    if backend not in ("auto", "coo", "bsr"):
+    if backend not in ("auto", "coo", "bsr", "banded"):
         raise ValueError(f"unknown backend {backend!r}")
     A = sp.csr_matrix(A, copy=True)
     if Q is None or Q == 0:
@@ -349,18 +362,27 @@ def greedy_krylov(
         top = find_top_edges(A, centrality, Q + k, order)
     sign = -1.0 if mode == "break" else +1.0
 
-    use_bsr, perm, A_aug = _use_super_tiles(A, top, Q, mode, backend, dev)
-    if use_bsr:
-        from ..ops.bsr_super import SuperBsrOperator
-
+    kind, perm, A_aug = choose_operator(A, top, Q, mode, backend, dev)
+    if kind != "coo":
         pinv = np.empty_like(perm)
         pinv[perm] = np.arange(len(perm))
+    if kind == "bsr":
+        from ..ops.bsr_super import SuperBsrOperator
+
         # permute in COO space: scipy's fancy-indexing permutation drops the
         # explicit-zero slots make mode depends on
         C1 = sp.coo_matrix(A_aug)
         Ap = sp.coo_matrix((C1.data, (pinv[C1.row], pinv[C1.col])),
                            shape=A.shape).tocsr()
         F = _BsrAdapter(SuperBsrOperator(Ap, dtype=dtype, device=dev), pinv)
+    elif kind == "banded":
+        from ..ops.banded_spmm import BandedEllOperator
+
+        # break mode has no explicit-zero slots to lose: permute as the JAX
+        # package does, so that the entry order matches its operator's
+        Ap = A[perm, :].tocsc()[:, perm].tocsr()
+        F = _BandedAdapter(BandedEllOperator(Ap, dtype=dtype, device=dev),
+                           pinv)
     else:
         F = _FrozenStructureMatrix(
             A, extra_edges=top if mode == "make" else None, dtype=dtype,
@@ -369,11 +391,13 @@ def greedy_krylov(
     # Below the dense cutoff the per-step loop scores exactly; above the
     # cell ceiling the fused block (one scoring call per step, unchunked)
     # cannot run, so large windows take the per-step loop. ¾ of the ceiling
-    # leaves room for the padded window and the operator's padded rows.
+    # leaves room for the padded window and the operator's padded rows. An
+    # operator without the fused hooks (banded) runs the per-step loop.
     if (fused_steps > 1 and rescore_every <= 1
             and A.shape[0] > trace_update.DENSE_N_CUTOFF
             and (Q + fused_steps + 64) * A.shape[0]
-            <= (3 * trace_update.MAX_SCORE_CELLS) // 4):
+            <= (3 * trace_update.MAX_SCORE_CELLS) // 4
+            and hasattr(F, "fused_state")):
         return _greedy_loop_fused(F, top, Q, k, mode, sign, fun, tol,
                                   rescale, schedule, shift, checkpoint,
                                   dataset, R=fused_steps)

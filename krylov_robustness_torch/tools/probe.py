@@ -4,7 +4,7 @@ Run from the root of a checkout (the graphs and the paper protocol come from
 ``chip_smoke.py``)::
 
     python3 -m krylov_robustness_torch.tools.probe [solvers] [profile] \\
-        [--out DIR]
+        [budget] [--out DIR]
 
 ``solvers``: the spectra solver of the f32 fused lane on the hub graph. One
 fused block (k = 10) with the Sturm bisection (``eigvalsh_banded``, the
@@ -18,6 +18,10 @@ hub graph and over one fused block (k = 10) on the hub graph. Prints wall
 time and device-busy time (the summed duration of the device's own events)
 per run, and writes each run's table, sorted by device time, to
 ``DIR/profile_<run>.txt`` (default ``build/probe``).
+
+``budget``: the same over the budget sweep's step at Q = 50 on the road
+graph (K3 in f32 and f64, COO per-step and fused), tables to
+``DIR/budget_<run>.txt``.
 """
 
 from __future__ import annotations
@@ -129,13 +133,65 @@ def probe_profile(smoke, dev, out: Path) -> None:
         print("\n".join(table.splitlines()[:14]))
 
 
+def probe_budget(smoke, dev, out: Path) -> None:
+    """The budget sweep's greedy step (Q = 50, break, no shift, tol 1e-6·
+    exp(‖A‖)) on the road graph under ``torch.profiler``: two per-step
+    steps on K3 in f32 and f64 and on COO in f32, and one fused block
+    (k = 10) on COO, the lane ``backend='coo'`` takes for the sweep's
+    ``fused_steps=10``."""
+    import scipy.sparse as sp
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..funm.normest import normest2_host
+    from ..graphs.centrality import compute_centrality_host
+    from ..ops import banded_spmm
+    from ..optimize.greedy import greedy_krylov
+
+    out.mkdir(parents=True, exist_ok=True)
+    A = sp.csr_matrix(smoke.road_graph(), dtype=np.float64)
+    c = compute_centrality_host(A, "eig")
+    tol = 1e-6 * float(np.exp(normest2_host(A, tol=1e-2)))
+    for name, dtype, backend, k, fused_steps in (
+            ("k3_f32_perstep_k2", torch.float32, "auto", 2, 0),
+            ("k3_f64_perstep_k2", torch.float64, "auto", 2, 0),
+            ("coo_f32_perstep_k2", torch.float32, "coo", 2, 0),
+            ("coo_f32_fused_k10", torch.float32, "coo", 10, 10)):
+        def run(k):
+            return greedy_krylov(A, k, 50, c, order="min", tol=tol,
+                                 mode="break", dtype=dtype, backend=backend,
+                                 fused_steps=fused_steps, device=dev)
+
+        run(1)  # warm-up
+        before = banded_spmm.launches_ell
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            r = run(k)
+        wall = time.perf_counter() - t0
+        busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                      if e.device_type == DeviceType.CUDA)
+        table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                          row_limit=40)
+        (out / f"budget_{name}.txt").write_text(table)
+        print(f"[budget] {name}: {r.operator}, fused steps "
+              f"{r.fused_accepted}, K3 launches "
+              f"{banded_spmm.launches_ell - before}, wall {wall * 1e3:.1f} "
+              f"ms, device busy {busy_us / 1e3:.1f} ms "
+              f"({100 * busy_us / 1e3 / (wall * 1e3):.1f}% of wall), "
+              f"per-step ms "
+              f"{[round(float(t) * 1e3, 2) for t in r.per_step_time]}")
+        print("\n".join(table.splitlines()[:14]))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("probes", nargs="*", choices=["solvers", "profile"],
-                    help="default: both")
+    ap.add_argument("probes", nargs="*",
+                    choices=["solvers", "profile", "budget"],
+                    help="default: all three")
     ap.add_argument("--out", type=Path, default=Path("build/probe"))
     args = ap.parse_args(argv)
-    args.probes = args.probes or ["solvers", "profile"]
+    args.probes = args.probes or ["solvers", "profile", "budget"]
     if not torch.cuda.is_available():
         print("probe: CUDA is not available", file=sys.stderr)
         return 2
@@ -148,6 +204,8 @@ def main(argv=None) -> int:
         probe_solvers(smoke, dev)
     if "profile" in args.probes:
         probe_profile(smoke, dev, args.out)
+    if "budget" in args.probes:
+        probe_budget(smoke, dev, args.out)
     return 0
 
 

@@ -8,7 +8,9 @@ runs the recurrence, and the host computes the projected spectra (LAPACK
 banded eigensolver, threaded) and the lag-2 stopping rule
 (``trace_fun_update.m:57-59,103-118``) at the round boundaries of a
 checkpoint schedule. Small graphs (n ≤ 130) take the exact dense path
-(``trace_fun_update.m:37-51``).
+(``trace_fun_update.m:37-51``) where the operator has ``todense``, and
+otherwise the phase lane (``host_eigh=False``): rounds grouped into phases,
+dense spectra and the lag test on the device, one host check per phase.
 
 Zero padding is exact: dead/converged members emit zero blocks, which add
 identical decoupled zero eigenvalues to both projections; their f
@@ -27,11 +29,19 @@ import torch
 
 from ..funm.dense import eigvalsh_or_nan, trace_fun_difference_eigs
 from ..funm.scalar import get_fun
-from ..krylov.lanczos import lanczos_continue, lanczos_start
+from ..krylov.lanczos import (
+    LanczosBlocks,
+    assemble_tridiag,
+    lanczos_continue,
+    lanczos_start,
+)
 
 DEFAULT_SCHEDULE = (6, 6, 8, 12, 20, 28, 20)  # cumulative 100 = reference max it
 DENSE_N_CUTOFF = 130  # reference trace_fun_update.m:37
-DEFAULT_PHASES = (3, 2, 2)  # rounds speculated by the first device dispatch
+# rounds per phase of the phase lane (the first phase covers the common
+# convergence range; later phases run only for stragglers); the host-eigh
+# lane speculates the first phase's rounds in one go
+DEFAULT_PHASES = (3, 2, 2)
 
 # Ceiling for one scoring call, in candidate·row cells (the Lanczos carry and
 # SpMM buffers are O(batch·n)). Kept at the JAX package's value so lane and
@@ -136,6 +146,85 @@ def _band_from_blocks(h_np, beta_np, Cm_np, m: int, bs: int):
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.detach().to(torch.float64).cpu().numpy()
+
+
+def _delta_trace_at(h, beta, Cm, m_total: int, bs: int, fun_name: str,
+                    shift=0.0) -> torch.Tensor:
+    """Δtrace from the first ``m_total`` recurrence steps, with dense
+    spectra of the symmetrized projections (``trace_fun_update.m:71-81``)."""
+    blocks = LanczosBlocks(h=h[:m_total], beta=beta[:m_total],
+                           lucky_step=torch.zeros(h.shape[1],
+                                                  dtype=torch.int32))
+    G = assemble_tridiag(blocks, bs=bs, m=m_total)
+    G = (G + G.transpose(-1, -2)) / 2
+    k = Cm.shape[-1]
+    tG = G.clone()
+    tG[:, :k, :k] += (Cm + Cm.transpose(-1, -2)) / 2
+    return trace_fun_difference_eigs(eigvalsh_or_nan(tG), eigvalsh_or_nan(G),
+                                     fun_name, shift=shift)
+
+
+def _phase(A, state, h_prev, beta_prev, Cm, tol, shift, delta, iters,
+           converged, best_err, rounds, m_prev: int, bs: int, fun_name: str,
+           lag: int):
+    """One phase: extend the recurrence by each round's steps and, at every
+    round boundary, run the lag test on the device and freeze the newly
+    converged candidates. Keeps the minimum-lag-error iterate of each
+    candidate (the f32 Lanczos-ghost drift makes later iterates worse)."""
+    h_all = [h_prev] if m_prev else []
+    beta_all = [beta_prev] if m_prev else []
+    m_done = m_prev
+    for steps in rounds:
+        blocks, state = lanczos_continue(A, state, steps)
+        h_all.append(blocks.h)
+        beta_all.append(blocks.beta)
+        m_done += steps
+        H, Bt = torch.cat(h_all), torch.cat(beta_all)
+        x_lag = _delta_trace_at(H, Bt, Cm, m_done - lag, bs, fun_name, shift)
+        x_now = _delta_trace_at(H, Bt, Cm, m_done, bs, fun_name, shift)
+        err = (x_now - x_lag).abs()
+        newly = ~converged & ((err < tol) | ~state.alive)
+        improved = ~converged & ((err <= best_err) | newly)
+        delta = torch.where(improved, x_now, delta)
+        iters = torch.where(improved, m_done, iters)
+        best_err = torch.where(improved, err, best_err)
+        converged = converged | newly
+    return (state, torch.cat(h_all), torch.cat(beta_all), delta, iters,
+            converged, best_err)
+
+
+def _trace_update_phases(A, U0, B, fun, tol, schedule, lag, phases,
+                         shift: float = 0.0) -> TraceUpdateResult:
+    """The phase lane: the schedule's rounds grouped into phases, spectra
+    and the lag test on the device; the host only checks between phases
+    whether stragglers remain."""
+    batch, _, bs = U0.shape
+    dtype, dev = U0.dtype, U0.device
+    state, R0 = lanczos_start(A, U0)
+    Cm = torch.einsum("bkl,blm,bpm->bkp", R0, B, R0)
+    phase_rounds = []
+    idx = 0
+    for p in phases:
+        if schedule[idx:idx + p]:
+            phase_rounds.append(tuple(schedule[idx:idx + p]))
+        idx += p
+    if schedule[idx:]:
+        phase_rounds.append(tuple(schedule[idx:]))
+    delta = torch.zeros((batch,), dtype=dtype, device=dev)
+    iters = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    converged = torch.zeros((batch,), dtype=torch.bool, device=dev)
+    best_err = torch.full((batch,), float("inf"), dtype=dtype, device=dev)
+    h = torch.zeros((0, batch, 2 * bs, bs), dtype=dtype, device=dev)
+    beta = torch.zeros((0, batch, bs, bs), dtype=dtype, device=dev)
+    m_prev = 0
+    for rounds in phase_rounds:
+        state, h, beta, delta, iters, converged, best_err = _phase(
+            A, state, h, beta, Cm, tol, shift, delta, iters, converged,
+            best_err, rounds, m_prev, bs, fun.name, lag)
+        m_prev += sum(rounds)
+        if bool(converged.all()):
+            break
+    return TraceUpdateResult(delta=delta, iters=iters, converged=converged)
 
 
 def _trace_update_host_eigh(A, U0, B, fun, tol, schedule, lag,
@@ -256,9 +345,8 @@ def trace_fun_update_batched(
             converged=torch.ones((batch,), dtype=torch.bool),
         )
     if not host_eigh:
-        raise NotImplementedError(
-            "the in-jit phase lane (host_eigh=False) is not ported yet "
-            "(ROADMAP.md, Queue 1)")
+        return _trace_update_phases(A, U0, B, fun, tol, schedule, lag,
+                                    phases, shift=shift)
     spec_rounds = int(phases[0]) if len(phases) else None
     return _trace_update_host_eigh(A, U0, B, fun, tol, schedule, lag,
                                    shift=shift, spec_rounds=spec_rounds)

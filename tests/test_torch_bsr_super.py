@@ -11,7 +11,7 @@ import torch
 
 import jax.numpy as jnp
 
-from krylov_robustness_torch.ops import bsr_super
+from krylov_robustness_torch.ops import bsr_super, cuda_build
 from krylov_robustness_torch.ops.bsr_super import (
     SuperBsrOperator,
     bf16_split,
@@ -190,11 +190,11 @@ def test_non_cpu_tensor_never_takes_the_plain_path(monkeypatch):
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     """A kernel build with no CUDA compiler raises instead of continuing."""
-    monkeypatch.setattr(bsr_super, "_BUILD_DIR", tmp_path)
-    monkeypatch.setattr(bsr_super.shutil, "which", lambda name: None)
-    monkeypatch.setattr(bsr_super.os.path, "exists", lambda p: False)
+    monkeypatch.setattr(cuda_build, "_BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cuda_build.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc"):
-        bsr_super.build_kernels()
+        cuda_build.build_kernels(("bsr_super",))
 
 
 def test_cuda_request_without_cuda_raises():

@@ -1,6 +1,7 @@
 """The slice as a whole: the PyTorch port's greedy_krylov against the JAX
-package's on the n=150 graphs of tests/test_greedy.py, break and make, COO
-and super-tile backends, per-step and fused lanes.
+package's on the n=120/150 graphs of tests/test_greedy.py, break and make,
+COO, super-tile and banded backends, per-step and fused lanes, and the
+backend choice on a CUDA device against the JAX package's on a TPU.
 
 f64: identical edges, rob_variation rtol 1e-9, identical A_new.
 f32 (Sturm spectra + f32 floor): identical edges, rob_variation rtol 1e-4.
@@ -13,7 +14,12 @@ import torch
 
 import jax.numpy as jnp
 
-from krylov_robustness_torch.graphs.top_edges import find_top_edges
+from helpers import random_graph
+from krylov_robustness_torch.graphs.centrality import compute_centrality_host
+from krylov_robustness_torch.graphs.top_edges import (
+    find_top_edges,
+    find_top_missing_edges,
+)
 from krylov_robustness_torch.optimize import fused as tfused
 from krylov_robustness_torch.optimize import greedy as tgreedy
 from krylov_robustness_torch.optimize.greedy import (
@@ -213,12 +219,135 @@ def test_krylov_miobi_matches_bruteforce(mode):
 
 
 def test_unported_backends_and_devices_raise(graph):
+    """'sharded' and 'sharded_bsr' are not ported and raise; 'banded' is
+    ported and runs; a missing or absent device raises."""
     A, c, _ = graph
-    for backend in ("banded", "sharded", "sharded_bsr"):
+    for backend in ("sharded", "sharded_bsr"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             greedy_krylov(A, 2, 20, c, backend=backend, device="cpu")
+    r = greedy_krylov(A, 2, 20, c, order="min", backend="banded",
+                      device="cpu")
+    assert r.operator == "BandedEllOperator" and len(r.edges) == 2
+    with pytest.raises(ValueError):
+        greedy_krylov(A, 2, 20, c, backend="bogus", device="cpu")
     with pytest.raises(ValueError):
         greedy_krylov(A, 2, 20, c, device=None)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             greedy_krylov(A, 2, 20, c, device="cuda")
+
+
+@pytest.mark.parametrize("n", [120, 150])
+@pytest.mark.parametrize("backend", ["banded", "bsr"])
+def test_pallas_backends_match_jax(n, backend):
+    """tests/test_greedy.py:173-203's setup against the JAX package: at
+    n = 120 the scorer runs the phase lane on these operators (they have no
+    ``todense``), at n = 150 the host-eigh lane. f64: identical edges,
+    rob_variation to rtol 1e-9, identical A_new."""
+    A = path_graph(8, 60, n=120) if n == 120 else path_graph(23, 80)
+    c = np.asarray(compute_centrality(CooMatrix.from_scipy(A), "eig"))
+    kw = dict(order="min", tol=1e-8, mode="break", backend=backend)
+    rj = jax_greedy_krylov(A, 3, 12, c, **kw)
+    rt = greedy_krylov(A, 3, 12, c, dtype=torch.float64, device="cpu", **kw)
+    np.testing.assert_array_equal(rt.edges, rj.edges)
+    np.testing.assert_allclose(rt.rob_variation, rj.rob_variation, rtol=1e-9)
+    assert (rt.A_new != rj.A_new).nnz == 0
+    assert rt.operator == ("BandedEllOperator" if backend == "banded"
+                           else "SuperBsrOperator(f32)")
+
+
+@pytest.fixture(scope="module")
+def decision_graphs():
+    """A road-like graph whose RCM band spans 1 window, and a random one
+    whose band spans 23 (more than the 17 the banded kernel takes)."""
+    narrow = path_graph(23, 80)
+    wide = random_graph(2000, 0.003, seed=3)
+    return {name: (A, compute_centrality_host(A, "eig"))
+            for name, A in (("narrow", narrow), ("wide", wide))}
+
+
+def _choice(graphs, band, Q, mode, backend, fits, monkeypatch):
+    A, c = graphs[band]
+    top = (find_top_missing_edges if mode == "make" else find_top_edges)(
+        A, c, Q + 5, "min")
+    if not fits:
+        monkeypatch.setattr(tgreedy, "BSR_STORAGE_CAP", 0)
+    kind, _, _ = tgreedy.choose_operator(A, top, Q, mode, backend,
+                                         torch.device("cuda"))
+    return kind
+
+
+# expected operator per (Q, mode, band, fits), read from the JAX package's
+# choice on the TPU (greedy.py:595-648): super tiles at 2Q >= 256 while they
+# fit the cap, else banded in break mode while the band spans <= 17 windows,
+# else COO
+AUTO_GRID = {
+    (50, "break", "narrow", True): "banded",
+    (50, "break", "narrow", False): "banded",
+    (50, "break", "wide", True): "coo",
+    (50, "break", "wide", False): "coo",
+    (50, "make", "narrow", True): "coo",
+    (50, "make", "narrow", False): "coo",
+    (50, "make", "wide", True): "coo",
+    (50, "make", "wide", False): "coo",
+    (250, "break", "narrow", True): "bsr",
+    (250, "break", "narrow", False): "banded",
+    (250, "break", "wide", True): "bsr",
+    (250, "break", "wide", False): "coo",
+    (250, "make", "narrow", True): "bsr",
+    (250, "make", "narrow", False): "coo",
+    (250, "make", "wide", True): "bsr",
+    (250, "make", "wide", False): "coo",
+}
+
+
+@pytest.mark.parametrize("cell", sorted(AUTO_GRID))
+def test_auto_choice_on_cuda_is_jax_choice_on_tpu(cell, decision_graphs,
+                                                  monkeypatch):
+    """backend='auto' with a CUDA device (a torch.device object: nothing is
+    allocated) chooses the operator the JAX package chooses on a TPU."""
+    Q, mode, band, fits = cell
+    assert _choice(decision_graphs, band, Q, mode, "auto", fits,
+                   monkeypatch) == AUTO_GRID[cell]
+
+
+@pytest.mark.parametrize("backend,Q,mode,band,fits,want", [
+    ("coo", 250, "break", "narrow", True, "coo"),
+    ("banded", 250, "break", "narrow", True, "banded"),
+    ("banded", 50, "make", "narrow", True, "coo"),
+    ("banded", 50, "break", "wide", True, "coo"),
+    ("bsr", 50, "break", "narrow", True, "bsr"),
+    ("bsr", 50, "break", "narrow", False, "banded"),
+    ("bsr", 50, "make", "narrow", False, "coo"),
+])
+def test_explicit_backend_choice_is_jax_choice(backend, Q, mode, band, fits,
+                                               want, decision_graphs,
+                                               monkeypatch):
+    """Explicit backends on a CUDA device, as the JAX package decides them
+    on any platform: 'banded' falls back to COO in make mode or past 17
+    windows, 'bsr' past the cap to banded (break) or COO."""
+    assert _choice(decision_graphs, band, Q, mode, backend, fits,
+                   monkeypatch) == want
+
+
+def test_auto_on_cpu_is_coo(graph):
+    A, c, _ = graph
+    top = find_top_edges(A, c, 100, "min")
+    for Q in (50, 250):
+        assert tgreedy.choose_operator(A, top, Q, "break", "auto",
+                                       torch.device("cpu"))[0] == "coo"
+
+
+def test_fused_request_on_banded_runs_per_step_like_jax(graph):
+    """An f32 fused_steps=10 request on the banded operator (no fused hooks)
+    runs the per-step lane, as the JAX package's guard sends it; picks equal
+    JAX's, rob_variation to the f32 lane's rtol 1e-4."""
+    A, c, tol32 = graph
+    kw = dict(order="min", tol=tol32, mode="break", backend="banded",
+              fused_steps=10)
+    rj = jax_greedy_krylov(A, 3, 12, c, dtype=jnp.float32, **kw)
+    rt = greedy_krylov(A, 3, 12, c, dtype=torch.float32, device="cpu", **kw)
+    assert rt.operator == "BandedEllOperator"
+    assert rt.fused_accepted == 0
+    np.testing.assert_array_equal(rt.edges, rj.edges)
+    np.testing.assert_allclose(rt.rob_variation, rj.rob_variation, rtol=1e-4)

@@ -50,9 +50,11 @@ def _compare_run(A, U, m):
     return bt, st
 
 
-@pytest.mark.parametrize("bs", [1, 2])
+@pytest.mark.parametrize("bs", [1, 2, 8])
 def test_blocks_match_jax(bs):
-    """The tests/test_krylov.py shape: n=150, batch of 3 random blocks."""
+    """The tests/test_krylov.py shape: n=150, batch of 3 random blocks; bs 8
+    is the width of a rescored joint edit of 4 disjoint edges
+    (experiments/unweighted.py::rescore_edges)."""
     A = random_graph(150, 0.05, seed=42, weighted=True)
     U = np.random.default_rng(0).standard_normal((3, 150, bs))
     _compare_run(A, U, 8)

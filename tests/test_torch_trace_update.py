@@ -1,7 +1,8 @@
 """Batched Δtrace scoring of the PyTorch port (updates/trace_update.py)
 against the JAX package in f64: deltas (rtol 1e-9), iteration counts and
 convergence flags, on each path — dense n ≤ 130, the host-eigh lane,
-incremental extension past the speculated rounds, and chunking."""
+incremental extension past the speculated rounds, the phase lane, and
+chunking."""
 
 import numpy as np
 import pytest
@@ -149,13 +150,47 @@ def test_chunking_matches_jax(monkeypatch):
 
 
 def test_phase_lane_not_ported_raises():
-    A = random_graph(200, 0.04, seed=10)
-    _, T = _ops(A)
-    E = _edges(A, 3)
-    U0 = tu.edge_start_blocks(200, E, torch.float64, "cpu")
-    B = tu.edge_B(E, -1.0, 1.0, torch.float64, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tu.trace_fun_update_batched(T, U0, B, host_eigh=False)
+    """The phase lane (``host_eigh=False``), once refused by the port, runs:
+    on tests/test_trace_update.py:239-261's setup (n = 300, 12 edges, tol
+    1e-9) its deltas equal JAX's phase lane to rtol 1e-9."""
+    A = random_graph(300, 0.04, seed=11)
+    M, T = _ops(A)
+    C = sp.coo_matrix(sp.tril(A, -1))
+    E = np.stack([C.row[:12], C.col[:12]], axis=1)
+    rj = ju.trace_fun_update_batched(
+        M, ju.edge_start_blocks(300, jnp.asarray(E), jnp.float64),
+        ju.edge_B(jnp.asarray(E), -1.0, 1.0, jnp.float64), tol=1e-9,
+        host_eigh=False)
+    rt = tu.trace_fun_update_batched(
+        T, tu.edge_start_blocks(300, E, torch.float64, "cpu"),
+        tu.edge_B(E, -1.0, 1.0, torch.float64, "cpu"), tol=1e-9,
+        host_eigh=False)
+    np.testing.assert_allclose(rt.delta.numpy(), np.asarray(rj.delta),
+                               rtol=1e-9)
+
+
+@pytest.mark.parametrize("sign,fun,phases", [
+    (-1.0, "exp", (3, 2, 2)), (1.0, "exp", (3, 2, 2)),
+    (-1.0, "sinh", (3, 2, 2)), (-1.0, "exp", (1, 1)),
+])
+def test_phase_lane_matches_jax(sign, fun, phases):
+    """The phase lane against JAX's on the same graph at the protocol's
+    tolerance scaling (rel·exp(λmax)): deltas to rtol 1e-9, identical
+    iteration counts and flags. phases (1, 1) converge in the second phase,
+    after the first phase's state is carried over."""
+    A = random_graph(300, 0.04, seed=11)
+    M, T = _ops(A)
+    E = _edges(A, 12, missing=sign > 0)
+    tol = _tol(A, 1e-9)
+    kw = dict(fun=fun, tol=tol, host_eigh=False, shift=2.0, phases=phases)
+    rj = ju.trace_fun_update_batched(
+        M, ju.edge_start_blocks(300, jnp.asarray(E), jnp.float64),
+        ju.edge_B(jnp.asarray(E), sign, 1.5, jnp.float64), **kw)
+    rt = tu.trace_fun_update_batched(
+        T, tu.edge_start_blocks(300, E, torch.float64, "cpu"),
+        tu.edge_B(E, sign, 1.5, torch.float64, "cpu"), **kw)
+    assert int(rt.iters.min()) > (6 if phases[0] == 1 else 0)
+    _assert_same(rt, rj)
 
 
 def test_band_from_blocks_matches_jax():
