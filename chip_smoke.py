@@ -8,13 +8,21 @@ Usage, from the root of a checkout on a machine with an sm_90a card::
 Phases, each of which raises on failure (exit code 1):
 
 1. device: the card's name and power limit, torch/CUDA versions, TF32 off;
-2. build: compile the kernels K1/K2 (``csrc/bsr_super.cu``) and K3
-   (``csrc/banded_ell.cu``) with nvcc, one process per source, in parallel;
+2. build: compile the kernels K1/K2 (``csrc/bsr_super.cu``), K3
+   (``csrc/banded_ell.cu``) and K4 (``csrc/bsr_flat.cu``) with nvcc, one
+   process per source, in parallel;
 3. kernels: each kernel against its plain torch version and scipy, with
-   CUDA-event times beside the plain version's and the COO SpMM's, on a road
-   network at Vermont's scale and a hub graph at ca-AstroPh's scale (both
-   RCM-permuted), at b = 512 and at the main paths' widths (K3 at b = 1,
-   100, 512 in f32 and 100 in f64, on the road graph);
+   CUDA-event times beside the plain version's, the COO SpMM's and one
+   cuSPARSE call's (``torch.sparse.mm`` on a CSR tensor, the yardstick the
+   port never calls), and its bound (the larger of the product's bytes — A
+   as CSR, x read once, y written once — at the HBM rate and 2·nnz·b at its
+   unit's peak) beside its design time (its stored tables in place of CSR),
+   on a road network at Vermont's scale and
+   a hub graph at ca-AstroPh's scale (both RCM-permuted), at b = 512 and at
+   the main paths' widths (K3 at b = 1, 100, 512 in f32 and 100 in f64, K4
+   at b = 1, 100, 500, 512 in f32 and 512 in f64, on the road graph); the
+   hub graph's flat blocks exceed their budget, so ``make_bsr_operator``
+   falls back to COO there;
 4. greedy path, road graph: ``greedy_krylov`` break/make on the per-step
    lane through K1 (f32) and K2 (f64), picks held against the COO backend;
 5. greedy path, hub graph: the fused lane with σ-shift, picks held against
@@ -25,11 +33,15 @@ Phases, each of which raises on failure (exit code 1):
    against the COO backend in f32 (its fused and per-step lanes) and f64;
 7. tables path (Tables 2-3): the CLI's ``unweighted`` protocol on the hub
    graph (GKB on K1, MIOBI and EIGENV rescored, host f64 normalizers);
-8. replay: the inputs of the last launch of each kernel at each shape of
-   phases 4-7, rerun through the kernel and its plain version.
+8. bench path: ``python3 -m krylov_robustness_torch.bench`` in this process
+   (its SpMM lanes on the road graph: COO, K4 and K1; its greedy lanes on
+   the hub graph), its JSON line printed as it is;
+9. replay: copies of the inputs of the last launch of each kernel at each
+   shape of phases 4-8 (outside the bench's timed lanes), rerun through the
+   kernel and its plain version.
 
-Each path (4-5, 6, 7) runs with every launch count set to 0 just before it
-and read just after. The line before the last is a JSON object with one
+Each path (4-5, 6, 7, 8) runs with every launch count set to 0 just before
+it and read just after. The line before the last is a JSON object with one
 entry per kernel (its count on the path that runs it, errors and times of
 phase 3); the last line is ``{"ok": true, "device": {...}}``. Without CUDA
 the script exits with code 2 and prints no result. Imports nothing of JAX.
@@ -37,16 +49,18 @@ the script exits with code 2 and prints no result. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import csv
+import io
 import json
 import os
 import shutil
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import scipy.sparse as sp
@@ -54,11 +68,13 @@ import torch
 
 SOURCES = {"K1": "krylov_robustness_torch/csrc/bsr_super.cu",
            "K2": "krylov_robustness_torch/csrc/bsr_super.cu",
-           "K3": "krylov_robustness_torch/csrc/banded_ell.cu"}
+           "K3": "krylov_robustness_torch/csrc/banded_ell.cu",
+           "K4": "krylov_robustness_torch/csrc/bsr_flat.cu"}
 REPLACES = {
     "K1": "krylov_robustness_tpu/ops/pallas_bsr_super.py:97",
     "K2": "krylov_robustness_tpu/ops/pallas_bsr_super.py:82",
     "K3": "krylov_robustness_tpu/ops/pallas_spmm.py:51",
+    "K4": "krylov_robustness_tpu/ops/pallas_bsr.py:49",
 }
 # relative to max|A x|: the first two mirror tests/test_pallas_bsr_super.py
 GATES = {"bf16x2": 3e-5, "bf16x3": 3e-7, "f32": 1e-6, "f64": 1e-12}
@@ -71,24 +87,6 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, msg: str):
     if not cond:
         raise SmokeFailure(msg)
-
-
-def road_graph():
-    """Synthetic banded road-network stand-in at Vermont's scale (the
-    generator of bench.py::build_graph, n = 95,672, seed 0)."""
-    rng = np.random.default_rng(0)
-    n = 95672
-    i = np.arange(n - 2)
-    src = np.concatenate([i, i, rng.integers(0, n - 301, 15000)])
-    off = np.concatenate(
-        [np.full(n - 2, 1), np.full(n - 2, 2), rng.integers(1, 300, 15000)]
-    )
-    A = sp.coo_matrix((np.ones(len(src)), (src, off + src)), shape=(n, n))
-    A = ((A + A.T) > 0).astype(np.float32)
-    A.setdiag(0)
-    A = sp.csr_matrix(A)
-    A.eliminate_zeros()
-    return A
 
 
 def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
@@ -108,11 +106,10 @@ def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def phase_device() -> None:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+def phase_device() -> str:
+    from krylov_robustness_torch import bench
+
+    card = bench.card()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -124,6 +121,7 @@ def phase_device() -> None:
           f"python {sys.version.split()[0]} "
           f"allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"float32_matmul_precision={torch.get_float32_matmul_precision()}")
+    return card
 
 
 def phase_build():
@@ -185,6 +183,48 @@ def hold_set_edge(op, Ap, x64, dev, label: str, where: str) -> None:
     print(f"[kernels] {where} set_edge({i},{j}) then product: {errs}")
 
 
+def library_ms(Ap, x) -> float:
+    """The yardstick: one PyTorch call computing the same product,
+    ``torch.sparse.mm`` on a CSR tensor of ``Ap`` in x's dtype (cuSPARSE),
+    timed as the kernels are. The port never calls it."""
+    Ap = sp.csr_matrix(Ap)
+    Ap.sort_indices()
+    csr = torch.sparse_csr_tensor(
+        torch.as_tensor(Ap.indptr.astype(np.int32)),
+        torch.as_tensor(Ap.indices.astype(np.int32)),
+        torch.as_tensor(Ap.data), size=Ap.shape, dtype=x.dtype,
+        device=x.device)
+    return cuda_ms(lambda: torch.sparse.mm(csr, x))
+
+
+# the keys of a kernel's entry in the kernels line
+ENTRY_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms")
+
+
+def timed_case(op, Ap, x, unit: str, diff: float) -> dict:
+    """CUDA-event times of the kernel, its plain version and the yardstick
+    on x, the kernel's bound (the least time the card could take for
+    y = A·x: A as CSR, x read once and y written once at the HBM rate,
+    against 2·nnz·b at the peak of ``unit``) and its design time (the same
+    with the operator's stored tables in place of CSR); the phase-3 entry
+    of one kernel case."""
+    from krylov_robustness_torch.bench import bounds_ms
+
+    n, b = x.shape
+    return {"max_abs_err": diff, "ms": cuda_ms(lambda: op.matmul(x)),
+            "plain_ms": cuda_ms(lambda: op.matmul_plain(x)),
+            **bounds_ms(op, n, Ap.nnz, b, x.element_size(), unit),
+            "library_ms": library_ms(Ap, x)}
+
+
+def case_text(st: dict) -> str:
+    """The yardstick, bound and design time of one timed case, as text."""
+    return (f"cusparse {st['library_ms']:.4f} ms bound {st['bound_ms']:.4f} "
+            f"ms ({st['bound_by']}) design {st['design_bytes'] / 1e6:.1f} MB "
+            f"{st['design_ms']:.4f} ms")
+
+
 def phase_kernels(dev, graphs) -> dict:
     from krylov_robustness_torch.ops.banded_spmm import rcm_permutation
     from krylov_robustness_torch.ops.bsr_super import SuperBsrOperator
@@ -207,19 +247,18 @@ def phase_kernels(dev, graphs) -> dict:
         for label, widths in cases:
             mode, dtype = MODES[label]
             op = SuperBsrOperator(Ap, dtype=dtype, device=dev, mode=mode)
+            unit = ("bf16" if mode != "f32" else
+                    "ffma" if dtype == torch.float32 else "dfma")
             for b in widths:
                 x, errs, diff = hold(op, Ap, x64[:, :b], dtype, dev, label,
                                      f"{name} {label} b={b}")
-                ms = cuda_ms(lambda: op.matmul(x))
-                plain_ms = cuda_ms(lambda: op.matmul_plain(x))
-                rate = nnz * b / (ms * 1e-3) / 1e9
-                plain_rate = nnz * b / (plain_ms * 1e-3) / 1e9
+                st = timed_case(op, Ap, x, unit, diff)
                 print(f"[kernels] {name} {label}: n={n} nnz={nnz} b={b} "
-                      f"tiles={op.ntiles} kernel {ms:.4f} ms ({rate:.2f} "
-                      f"Gnnz·b/s) plain {plain_ms:.4f} ms ({plain_rate:.2f} "
-                      f"Gnnz·b/s); {errs}")
-                stats[name, label, b] = {"max_abs_err": diff, "ms": ms,
-                                         "plain_ms": plain_ms}
+                      f"tiles={op.ntiles} kernel {st['ms']:.4f} ms "
+                      f"({nnz * b / (st['ms'] * 1e-3) / 1e9:.2f} Gnnz·b/s) "
+                      f"plain {st['plain_ms']:.4f} ms {case_text(st)}; "
+                      f"{errs}")
+                stats[name, label, b] = st
                 del x
             if (name, label) == ("road", "bf16x3"):
                 hold_set_edge(op, Ap, x64, dev, label, "K1")
@@ -228,73 +267,143 @@ def phase_kernels(dev, graphs) -> dict:
     return stats
 
 
-# K3's widths: a vector, the budget sweep's 2·Q = 100 at Q = 50, and b = 512
+# (dtype, label, b) of the road-graph kernels. K3: a vector, the budget
+# sweep's 2·Q = 100 at Q = 50, and b = 512. K4: a vector, b = 100, the
+# per-step scoring width 2·Q = 500 and the bench's b = 512; f64 at the
+# bench's width.
 BANDED_CASES = ((torch.float32, "f32", 1), (torch.float32, "f32", 100),
                 (torch.float32, "f32", 512), (torch.float64, "f64", 100))
+FLAT_CASES = ((torch.float32, "f32", 1), (torch.float32, "f32", 100),
+              (torch.float32, "f32", 500), (torch.float32, "f32", 512),
+              (torch.float64, "f64", 512))
 
 
-def phase_banded_kernel(dev, A) -> dict:
-    """K3 on the RCM-permuted road graph against its plain version and
-    scipy, with CUDA-event times of the kernel, the plain version and the
-    COO SpMM at the same width; then a frozen-structure edit and a
-    product."""
+def phase_road_kernel(dev, A, kernel: str, make_op, cases, describe) -> dict:
+    """One kernel (K3, K4) on the RCM-permuted road graph against its plain
+    version and scipy at each (dtype, label, b) of ``cases``, with
+    CUDA-event times of the kernel, the plain version, the COO SpMM and the
+    yardstick, and its bound; then a frozen-structure edit and a product.
+    ``make_op(Ap, dtype)`` builds the operator; ``describe(op, n, nnz, b,
+    ms)`` gives the kernel's own figures for its line."""
+    from krylov_robustness_torch.ops.banded_spmm import rcm_permutation
+    from krylov_robustness_torch.ops.sparse import CooMatrix
+
+    perm = rcm_permutation(A)
+    Ap = A[perm, :].tocsc()[:, perm].tocsr()
+    n, nnz = Ap.shape[0], Ap.nnz
+    x64 = np.random.default_rng(1).standard_normal((n, 512))
+    stats = {}
+    ops = {}
+    for dtype, label, b in cases:
+        if label not in ops:
+            ops[label] = (make_op(Ap, dtype),
+                          CooMatrix.from_scipy(Ap, dtype=dtype, device=dev))
+        op, coo = ops[label]
+        x, errs, diff = hold(op, Ap, x64[:, :b], dtype, dev, label,
+                             f"road {kernel} {label} b={b}")
+        st = timed_case(op, Ap, x, "ffma" if label == "f32" else "dfma",
+                        diff)
+        coo_ms = cuda_ms(lambda: coo.matmul(x))
+        print(f"[kernels] road {kernel} {label}: n={n} nnz={nnz} b={b} "
+              f"{describe(op, n, nnz, b, st['ms'])} kernel {st['ms']:.4f} ms "
+              f"({nnz * b / (st['ms'] * 1e-3) / 1e9:.2f} Gnnz·b/s) plain "
+              f"{st['plain_ms']:.4f} ms coo {coo_ms:.4f} ms {case_text(st)}; "
+              f"{errs}")
+        stats["road", f"{kernel} {label}", b] = st
+    hold_set_edge(ops["f32"][0], Ap, x64, dev, "f32", kernel)
+    del ops
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_road_kernels(dev, A) -> dict:
+    """K3 and K4 through :func:`phase_road_kernel`."""
     from krylov_robustness_torch.ops.banded_spmm import (
         BandedEllOperator,
         num_windows,
         rcm_bandwidth,
         rcm_permutation,
     )
-    from krylov_robustness_torch.ops.sparse import CooMatrix
+    from krylov_robustness_torch.ops.bsr import BLK, BsrOperator
 
-    perm = rcm_permutation(A)
-    bw = rcm_bandwidth(A, perm)
-    Ap = A[perm, :].tocsc()[:, perm].tocsr()
-    n, nnz = Ap.shape[0], Ap.nnz
-    x64 = np.random.default_rng(1).standard_normal((n, 512))
-    stats = {}
-    ops = {}
-    for dtype, label, b in BANDED_CASES:
-        if label not in ops:
-            ops[label] = (BandedEllOperator(Ap, dtype=dtype, device=dev),
-                          CooMatrix.from_scipy(Ap, dtype=dtype, device=dev))
-        op, coo = ops[label]
-        x, errs, diff = hold(op, Ap, x64[:, :b], dtype, dev, label,
-                             f"road K3 {label} b={b}")
-        ms = cuda_ms(lambda: op.matmul(x))
-        plain_ms = cuda_ms(lambda: op.matmul_plain(x))
-        coo_ms = cuda_ms(lambda: coo.matmul(x))
-        # HBM bytes of one product: x read once, y written, the two tables
-        esize = x.element_size()
-        mbytes = (2 * n * b * esize + op.K * n * (4 + esize)) / 1e6
-        print(f"[kernels] road K3 {label}: n={n} nnz={nnz} K={op.K} bw={bw} "
-              f"windows={num_windows(bw)} b={b} kernel {ms:.4f} ms "
-              f"({nnz * b / (ms * 1e-3) / 1e9:.2f} Gnnz·b/s, {mbytes:.1f} MB "
-              f"→ {mbytes / ms:.1f} GB/s) plain {plain_ms:.4f} ms coo "
-              f"{coo_ms:.4f} ms; {errs}")
-        stats["road", f"K3 {label}", b] = {"max_abs_err": diff, "ms": ms,
-                                           "plain_ms": plain_ms}
-    hold_set_edge(ops["f32"][0], Ap, x64, dev, "f32", "K3")
-    del ops
-    torch.cuda.empty_cache()
+    bw = rcm_bandwidth(A, rcm_permutation(A))
+
+    def banded(op, n, nnz, b, ms):
+        return f"K={op.K} bw={bw} windows={num_windows(bw)}"
+
+    def flat(op, n, nnz, b, ms):
+        # what the dense-block design computes: every block whole
+        dense_gflop = 2.0 * op.nblocks * BLK * BLK * b / 1e9
+        return (f"blocks={op.nblocks} ({op.storage_bytes() / 1e6:.1f} MB, "
+                f"fill {nnz / (op.nblocks * BLK * BLK):.4%}, "
+                f"{dense_gflop / ms:.2f} dense TFLOP/s)")
+
+    stats = phase_road_kernel(
+        dev, A, "K3", lambda Ap, dt: BandedEllOperator(Ap, dtype=dt,
+                                                       device=dev),
+        BANDED_CASES, banded)
+    stats.update(phase_road_kernel(
+        dev, A, "K4", lambda Ap, dt: BsrOperator(Ap, dtype=dt, device=dev),
+        FLAT_CASES, flat))
     return stats
 
 
+def phase_flat_fallback(dev, H) -> None:
+    """The hub graph's flat blocks exceed their budget: ``make_bsr_operator``
+    counts them before packing and falls back to COO in the identity
+    order."""
+    from krylov_robustness_torch.ops.banded_spmm import rcm_permutation
+    from krylov_robustness_torch.ops.bsr import (
+        BLK,
+        MAX_STORAGE_BYTES,
+        bsr_block_count,
+        make_bsr_operator,
+    )
+    from krylov_robustness_torch.ops.sparse import CooMatrix
+
+    nblk = bsr_block_count(H, rcm_permutation(H))
+    op, perm = make_bsr_operator(H, dtype=torch.float32, device=dev)
+    print(f"[kernels] hub K4: {nblk} blocks = {nblk * BLK * BLK * 4 / 1e9:.2f} "
+          f"GB in f32 > {MAX_STORAGE_BYTES / 2**20:.0f} MiB: "
+          f"make_bsr_operator gave {type(op).__name__}")
+    check(nblk * BLK * BLK * 4 > MAX_STORAGE_BYTES,
+          "hub graph: the flat blocks fit the budget")
+    check(isinstance(op, CooMatrix), f"hub graph: {type(op).__name__}, not "
+          f"the COO fallback")
+    check(np.array_equal(perm, np.arange(H.shape[0])),
+          "hub graph: the COO fallback is not in the identity order")
+
+
 class MainPathCapture:
-    """While active, keeps a copy of the inputs of the last launch of each
+    """While active, keeps copies of the inputs of the last launch of each
     kernel at each (tiles, n, b, mode) the main path gives it, so that
-    ``replay`` can hold every such shape against the plain version. The last
-    launch carries the deepest Lanczos block, the densest x of the run. The
-    wrappers keep their own launch counts; this adds none."""
+    ``replay`` can hold every such shape, on the inputs it was launched on,
+    against the plain version. The last launch carries the deepest Lanczos
+    block, the densest x of the run. Inside :meth:`pause` (the bench's timed
+    lanes) it keeps nothing, so that it adds no device work to what is
+    timed. The wrappers keep their own launch counts; this adds none."""
 
     def __init__(self):
-        from krylov_robustness_torch.ops import banded_spmm, bsr_super
+        from krylov_robustness_torch.ops import banded_spmm, bsr, bsr_super
 
-        self.mod, self.ell = bsr_super, banded_spmm
+        self.mod, self.ell, self.flat = bsr_super, banded_spmm, bsr
         self.k1, self.k2 = bsr_super.tile_spmm_bf16, bsr_super.tile_spmm_full
         self.k3 = banded_spmm.ell_spmm
+        self.k4 = bsr.bsr_spmm
         self.kept = {}
+        self.paused = False
+
+    @contextlib.contextmanager
+    def pause(self):
+        self.paused = True
+        try:
+            yield
+        finally:
+            self.paused = False
 
     def _keep(self, key, args):
+        if self.paused:
+            return
         self.kept.pop(key, None)
         self.kept[key] = tuple(a.clone() for a in args)
 
@@ -316,13 +425,21 @@ class MainPathCapture:
                        (cols, vals, x))
             return self.k3(cols, vals, x)
 
+        def k4(ablocks, cb, row_ptr, x):
+            label = "f32" if x.dtype == torch.float32 else "f64"
+            self._keep(("K4", label, ablocks.shape[0], *x.shape),
+                       (ablocks, cb, row_ptr, x))
+            return self.k4(ablocks, cb, row_ptr, x)
+
         self.mod.tile_spmm_bf16, self.mod.tile_spmm_full = k1, k2
         self.ell.ell_spmm = k3
+        self.flat.bsr_spmm = k4
         return self
 
     def __exit__(self, *exc):
         self.mod.tile_spmm_bf16, self.mod.tile_spmm_full = self.k1, self.k2
         self.ell.ell_spmm = self.k3
+        self.flat.bsr_spmm = self.k4
 
     def replay(self) -> dict:
         """Each kept launch, rerun through its kernel and its plain version;
@@ -337,6 +454,20 @@ class MainPathCapture:
                 worst[kernel] = max(worst.get(kernel, 0.0), self._check(
                     f"{kernel} {label} K={size} n={n} b={b}", label, x, yk,
                     yp))
+                continue
+            if kernel == "K4":
+                ablocks, cb, row_ptr, x = args
+                nrb = row_ptr.numel() - 1
+                rb = torch.repeat_interleave(
+                    torch.arange(nrb, device=x.device), torch.diff(row_ptr))
+                x_pad = torch.zeros((nrb * self.flat.BLK, b), dtype=x.dtype,
+                                    device=x.device)
+                x_pad[:n] = x
+                yk = self.k4(ablocks, cb, row_ptr, x)
+                yp = self.flat.bsr_spmm_plain(ablocks, cb, rb, x_pad)[:n]
+                worst[kernel] = max(worst.get(kernel, 0.0), self._check(
+                    f"{kernel} {label} blocks={size} n={n} b={b}", label, x,
+                    yk, yp))
                 continue
             atiles, slab, sup_ptr, blkmask, x = args
             nsup, tile_r = sup_ptr.numel() - 1, atiles.shape[1]
@@ -358,35 +489,17 @@ class MainPathCapture:
 
     @staticmethod
     def _check(where, label, x, yk, yp) -> float:
+        nonzero = float((x != 0).float().mean())
+        check(nonzero > 0, f"main-path {where}: x is all zero, so the replay "
+              f"checks nothing")
         diff = float((yk - yp).abs().max())
         scale = float(yp.abs().max())
-        print(f"[replay] {where}, x {float((x != 0).float().mean()):.3f} "
-              f"nonzero: kernel-plain {diff / scale:.3e} (gate "
-              f"{GATES[label]:.0e})")
+        rel = diff / scale if scale else diff
+        print(f"[replay] {where}, x {nonzero:.3f} nonzero: kernel-plain "
+              f"{rel:.3e} (gate {GATES[label]:.0e})")
         check(diff <= GATES[label] * scale,
-              f"main-path {where}: kernel vs plain {diff / scale:.3e}")
+              f"main-path {where}: kernel vs plain {rel:.3e}")
         return diff
-
-
-def hub_graph():
-    """Seeded Chung–Lu graph at ca-AstroPh's scale: 18,772 nodes, 198,000
-    endpoint draws from power-law expected degrees (max 500, mean ≈ 21),
-    then the paper preprocessing (binarize, no loops, largest component)."""
-    from krylov_robustness_torch.graphs.preprocess import (
-        preprocess_unweighted,
-    )
-
-    rng = np.random.default_rng(0)
-    n, m, dmax = 18772, 198000, 500.0
-    for alpha in np.linspace(0.3, 1.2, 91):
-        w = (np.arange(n) + 1.0) ** -alpha
-        w *= dmax / w[0]
-        if w.mean() <= 2 * m / n:
-            break
-    p = w / w.sum()
-    src, dst = rng.choice(n, size=m, p=p), rng.choice(n, size=m, p=p)
-    return preprocess_unweighted(
-        sp.coo_matrix((np.ones(m), (src, dst)), shape=(n, n)))
 
 
 def protocol(A, dtype):
@@ -573,7 +686,7 @@ def phase_budget(dev, A, root: Path) -> None:
     write_mat(root, "Transport", name, A)
     out = root / "out"
     before = banded_spmm.launches_ell
-    wall = run_cli(["--cuda", "--out-dir", str(out), "budget", "--mode",
+    wall = run_cli(["--out-dir", str(out), "budget", "--mode",
                     "break", "--datasets", name, "--search-spaces", "50",
                     "--budgets", "5", "10"])
     grew = banded_spmm.launches_ell - before
@@ -638,7 +751,7 @@ def phase_tables(A, root: Path) -> None:
     name = "hub_standin"
     write_mat(root, "Misc", name, A)
     out = root / "out"
-    wall = run_cli(["--cuda", "--out-dir", str(out), "unweighted", "--mode",
+    wall = run_cli(["--out-dir", str(out), "unweighted", "--mode",
                     "break", "--datasets", name, "--k", "5"])
     path = next(p for p in out.glob("results_unweighted_break_*.jsonl")
                 if "budget" not in p.name and "intersections" not in p.name)
@@ -662,20 +775,67 @@ def phase_tables(A, root: Path) -> None:
           f"tables: intersections {inter}")
 
 
+def phase_bench(card: str, capture: MainPathCapture) -> None:
+    """The port's bench through its entry point, in this process (so that
+    the launch counts see its kernels), its JSON line printed as it is. The
+    capture keeps nothing inside the bench's timed lanes, so that the
+    bench's times are those it has alone, and the bench pauses no other
+    process (``KRT_BENCH_NO_PAUSE``): another checkout's runs on the same
+    machine go on."""
+    from krylov_robustness_torch import bench
+
+    def untraced(fn):
+        def run(*args, **kwargs):
+            with capture.pause():
+                return fn(*args, **kwargs)
+        return run
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for name in ("time_chain", "scoring_lane", "fused_lane"):
+            stack.enter_context(mock.patch.object(
+                bench, name, untraced(getattr(bench, name))))
+        stack.enter_context(mock.patch.dict(os.environ,
+                                            KRT_BENCH_NO_PAUSE="1"))
+        stack.enter_context(contextlib.redirect_stdout(buf))
+        code = bench.main([])
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    print(out, end="")
+    check(code == 0, f"the bench exited with {code}")
+    payload = json.loads(out.strip().splitlines()[-1])
+    print(f"[bench] python3 -m krylov_robustness_torch.bench: wall "
+          f"{wall:.1f} s")
+    keys = {"metric", "value", "unit", "vs_baseline", "greedy_step_ms",
+            "greedy_step_shape", "greedy_scoring_ms", "card"}
+    check(set(payload) == keys, f"bench payload keys {sorted(payload)}")
+    check(payload["metric"] == "spmm_throughput_synthetic-road_b512",
+          f"bench metric {payload['metric']}")
+    check(payload["greedy_step_shape"] == "synthetic-hub_b250_bs2_fusedR10",
+          f"bench greedy shape {payload['greedy_step_shape']}")
+    check(payload["card"] == card, f"bench card {payload['card']!r}")
+    check(all(np.isfinite(payload[k]) and payload[k] > 0
+              for k in ("value", "vs_baseline", "greedy_step_ms",
+                        "greedy_scoring_ms")),
+          "bench: a number is not finite and > 0")
+
+
 def launch_counts() -> dict:
-    from krylov_robustness_torch.ops import banded_spmm, bsr_super
+    from krylov_robustness_torch.ops import banded_spmm, bsr, bsr_super
 
     return {"K1": bsr_super.launches_bf16, "K2": bsr_super.launches_f32,
-            "K3": banded_spmm.launches_ell}
+            "K3": banded_spmm.launches_ell, "K4": bsr.launches_bsr}
 
 
 def drive(path: str, fn, *args) -> dict:
     """One main path, with every launch count set to 0 just before it and
     read just after; returns the counts."""
-    from krylov_robustness_torch.ops import banded_spmm, bsr_super
+    from krylov_robustness_torch.ops import banded_spmm, bsr, bsr_super
 
     bsr_super.launches_bf16 = bsr_super.launches_f32 = 0
     banded_spmm.launches_ell = 0
+    bsr.launches_bsr = 0
     t0 = time.perf_counter()
     fn(*args)
     counts = launch_counts()
@@ -689,29 +849,38 @@ def greedy_path(dev, graphs) -> None:
 
 
 def run(dev, root: Path) -> int:
-    phase_device()
+    from krylov_robustness_torch.bench import hub_graph, road_graph
+
+    card = phase_device()
     phase_build()
     graphs = {"road": sp.csr_matrix(road_graph(), dtype=np.float64),
               "hub": hub_graph()}
     stats = phase_kernels(dev, graphs)
-    stats.update(phase_banded_kernel(dev, graphs["road"]))
+    stats.update(phase_road_kernels(dev, graphs["road"]))
+    phase_flat_fallback(dev, graphs["hub"])
     with MainPathCapture() as capture:
         greedy = drive("greedy", greedy_path, dev, graphs)
         budget = drive("budget", phase_budget, dev, graphs["road"], root)
         tables = drive("tables", phase_tables, graphs["hub"], root)
+        benched = drive("bench", phase_bench, card, capture)
     check(greedy["K1"] and greedy["K2"],
           f"greedy path: a kernel was not launched: {greedy}")
     check(budget["K3"] > 0, f"budget path: K3 was not launched: {budget}")
     check(tables["K1"] > 0, f"tables path: K1 was not launched: {tables}")
-    capture.replay()
+    check(benched["K4"] > 0 and benched["K1"] > 0,
+          f"bench path: a kernel was not launched: {benched}")
+    replayed = capture.replay()
+    check("K4" in replayed, "replay: no K4 launch was kept")
     entries = (("K1", "K1 tile_spmm_bf16 (bf16x2)", greedy,
                 ("road", "bf16x2", 512)),
                ("K2", "K2 tile_spmm_full (f64)", greedy,
                 ("road", "f64", 512)),
-               ("K3", "K3 ell_spmm (f32)", budget, ("road", "K3 f32", 100)))
+               ("K3", "K3 ell_spmm (f32)", budget, ("road", "K3 f32", 100)),
+               ("K4", "K4 bsr_spmm (f32)", benched, ("road", "K4 f32", 512)))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[k],
-         "replaces": REPLACES[k], "launches": counts[k], **stats[key]}
+         "replaces": REPLACES[k], "launches": counts[k],
+         **{e: stats[key][e] for e in ENTRY_KEYS}}
         for k, name, counts, key in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,14 +2,15 @@
 ``krylov_robustness_tpu/experiments/__main__.py``:
 
     python -m krylov_robustness_torch.experiments unweighted --mode break
-    python -m krylov_robustness_torch.experiments --cuda budget --mode break \\
+    python -m krylov_robustness_torch.experiments --cpu budget --mode break \\
         --datasets Anaheim Rome
 
-By default it runs on the CPU in float64 (the golden-result configuration,
-matching the reference's MATLAB doubles); ``--cuda`` runs on ``cuda:0`` in
-float32 with TF32 off. The datasets are read from ``$KRYLOV_ROBUSTNESS_DATA``
-(``graphs/io.py``). The subcommands ``weighted``, ``trace``, ``parity`` and
-``scaling`` are not ported yet and raise ``NotImplementedError``.
+By default it runs on ``cuda:0`` in float32 with TF32 off, and raises on a
+machine without CUDA; ``--cpu`` runs on the CPU in float64 (the
+golden-result configuration, matching the reference's MATLAB doubles). The
+datasets are read from ``$KRYLOV_ROBUSTNESS_DATA`` (``graphs/io.py``). The
+subcommands ``weighted``, ``trace``, ``parity`` and ``scaling`` are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,10 +29,10 @@ NOT_PORTED = {
 }
 
 
-def _setup_device(use_cuda: bool):
-    """(device, dtype): cuda:0 in float32 with full-precision f32 matmuls,
-    or the CPU in float64."""
-    if not use_cuda:
+def _setup_device(use_cpu: bool):
+    """(device, dtype): the CPU in float64, or cuda:0 in float32 with
+    full-precision f32 matmuls (which raises without CUDA)."""
+    if use_cpu:
         return torch.device("cpu"), torch.float64
     from ..utils.device import require_full_f32_matmul, resolve_device
 
@@ -45,8 +46,9 @@ def _setup_device(use_cuda: bool):
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="krylov_robustness_torch.experiments")
-    p.add_argument("--cuda", action="store_true",
-                   help="run on cuda:0 in float32 instead of CPU float64")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU in float64 instead of cuda:0 in "
+                   "float32")
     p.add_argument("--out-dir", default="results")
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -78,8 +80,8 @@ def main(argv=None):
                    "rescores")
     u.add_argument("--fused-steps", type=int, default=None,
                    help="greedy steps fused per block (optimize/fused.py); "
-                   "0/1 = per-step loop; default auto = 10 with --cuda "
-                   "(f32), 0 on the CPU f64 golden lane. Steps with "
+                   "0/1 = per-step loop; default auto = 10 on cuda:0 "
+                   "(f32), 0 on the --cpu f64 golden lane. Steps with "
                    "convergence stragglers past the fused budget replay "
                    "through the accurate path")
 
@@ -107,7 +109,7 @@ def main(argv=None):
             f"{NOT_PORTED[args.cmd]})")
     if unknown:
         p.error(f"unrecognized arguments: {' '.join(unknown)}")
-    dev, dtype = _setup_device(args.cuda)
+    dev, dtype = _setup_device(args.cpu)
 
     if args.cmd == "unweighted":
         from ..utils.config import UnweightedConfig

@@ -22,6 +22,7 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 import torch
 
+from ..utils.device import resolve_device
 from .expmv import ExpmvPlan, expmv, select_taylor_degree
 
 
@@ -78,17 +79,20 @@ def mc_trace(
     m_probe: int = 10,
     generator: torch.Generator | None = None,
     dtype=torch.float64,
-    device="cpu",
+    *,
+    device,
     debug: bool = False,
 ):
     """Trace of the black-box symmetric operator ``op`` (x ↦ A·x) on
-    ``device``. Outer budget ``K = ceil(maxit/(3·m))`` (``mc_trace.m:41``),
-    per iteration m exact deflation directions + an m-probe Hutchinson
+    ``device``, which has no default (a CUDA request without CUDA raises).
+    Outer budget ``K = ceil(maxit/(3·m))`` (``mc_trace.m:41``), per
+    iteration m exact deflation directions + an m-probe Hutchinson
     remainder, stop when the relative change of the estimate drops below
     tol. ``generator`` draws the probes (default: seed 0 on the CPU).
 
     Returns (trace_estimate, residual, iterations).
     """
+    device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     K = max(-(-maxit // (3 * m_probe)), 1)

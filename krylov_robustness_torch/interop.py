@@ -10,6 +10,7 @@ import torch
 
 from .krylov.lanczos import LanczosState
 from .ops.banded_spmm import BandedEllOperator
+from .ops.bsr import BsrOperator
 from .ops.bsr_super import SuperBsrOperator
 from .ops.sparse import CooMatrix
 from .utils.device import float_dtype, resolve_device
@@ -45,6 +46,17 @@ def super_bsr_from_arrays(atiles, slab, sup, start, entry_tile, entry_offset,
     return SuperBsrOperator.from_packed(
         tiles, (slab, sup, start), entry_tile, entry_offset, entry_rc, n,
         n_pad, mode, dtype)
+
+
+def bsr_from_arrays(ablocks, cb, rb, first, entry_block, entry_offset,
+                    entry_rc, n: int, dtype, device) -> BsrOperator:
+    """``BsrOperator`` over the JAX operator's flat 128 × 128 packing, its
+    blocks converted to ``dtype``."""
+    dev = resolve_device(device)
+    blocks = torch.as_tensor(np.array(ablocks, np.float64), device=dev).to(
+        float_dtype(dtype))
+    return BsrOperator.from_packed(blocks, cb, rb, first, entry_block,
+                                   entry_offset, entry_rc, n)
 
 
 def banded_ell_from_arrays(relT, winT, valT, Wv: int, n: int, entry_pos,

@@ -1,6 +1,7 @@
 """Probes of the greedy lanes on one GPU, beside ``chip_smoke.py``.
 
-Run from the root of a checkout (the graphs and the paper protocol come from
+Run from the root of a checkout (the graphs come from
+:mod:`krylov_robustness_torch.bench`, the paper protocol from
 ``chip_smoke.py``)::
 
     python3 -m krylov_robustness_torch.tools.probe [solvers] [profile] \\
@@ -35,6 +36,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..bench import hub_graph, road_graph
+
 
 def _cuda_ms(fn, reps: int = 5) -> float:
     fn()
@@ -65,7 +68,7 @@ def probe_solvers(smoke, dev) -> None:
     from ..optimize import fused
     from ..optimize.greedy import greedy_krylov
 
-    A = smoke.hub_graph()
+    A = hub_graph()
     c, _, sigma, tol = smoke.protocol(A, torch.float32)
     sturm = fused._spectra
     first = []
@@ -108,8 +111,8 @@ def probe_profile(smoke, dev, out: Path) -> None:
     from ..optimize.greedy import greedy_krylov
 
     out.mkdir(parents=True, exist_ok=True)
-    road = sp.csr_matrix(smoke.road_graph(), dtype=np.float64)
-    hub = smoke.hub_graph()
+    road = sp.csr_matrix(road_graph(), dtype=np.float64)
+    hub = hub_graph()
     for name, A, k, fused_steps in (("road_break_perstep_k2", road, 2, 0),
                                     ("hub_break_perstep_k2", hub, 2, 0),
                                     ("hub_break_fused_k10", hub, 10, 10)):
@@ -149,7 +152,7 @@ def probe_budget(smoke, dev, out: Path) -> None:
     from ..optimize.greedy import greedy_krylov
 
     out.mkdir(parents=True, exist_ok=True)
-    A = sp.csr_matrix(smoke.road_graph(), dtype=np.float64)
+    A = sp.csr_matrix(road_graph(), dtype=np.float64)
     c = compute_centrality_host(A, "eig")
     tol = 1e-6 * float(np.exp(normest2_host(A, tol=1e-2)))
     for name, dtype, backend, k, fused_steps in (

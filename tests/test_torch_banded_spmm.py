@@ -208,7 +208,9 @@ def test_one_build_per_source_all_started_together(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_build.subprocess, "Popen", FakeProc)
     built = cuda_build.build_kernels()
     assert set(built) == set(cuda_build.SOURCES)
-    assert [e for e, _ in events] == ["start"] * 2 + ["wait"] * 2
+    nsrc = len(cuda_build.SOURCES)
+    assert nsrc == 3  # K1/K2, K3 and K4
+    assert [e for e, _ in events] == ["start"] * nsrc + ["wait"] * nsrc
     assert all(p.exists() and p.parent == tmp_path for p, _ in
                built.values())
     again = cuda_build.build_kernels()

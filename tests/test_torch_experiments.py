@@ -118,7 +118,7 @@ def test_cli_budget_reads_a_mat_root(tmp_path, monkeypatch):
     monkeypatch.setattr(tio, "DEFAULT_DATA_ROOTS", (str(tmp_path / "data"),))
     assert (tio.load_transport("toy") != A).nnz == 0
     out = tmp_path / "out"
-    assert main(["--out-dir", str(out), "budget", "--mode", "break",
+    assert main(["--cpu", "--out-dir", str(out), "budget", "--mode", "break",
                  "--datasets", "toy", "--search-spaces", "6",
                  "--budgets", "2", "4"]) == 0
     rows = _csv_rows(next(out.glob("results_unweighted_break_budget_*.csv")))
@@ -133,8 +133,8 @@ def test_cli_unweighted_reads_a_misc_root(tmp_path, monkeypatch):
     _write_mat(tmp_path / "data", "Misc", "hub", small_graph())
     monkeypatch.setattr(tio, "DEFAULT_DATA_ROOTS", (str(tmp_path / "data"),))
     out = tmp_path / "out"
-    assert main(["--out-dir", str(out), "unweighted", "--mode", "break",
-                 "--datasets", "hub", "--k", "2", "--Q", "10"]) == 0
+    assert main(["--cpu", "--out-dir", str(out), "unweighted", "--mode",
+                 "break", "--datasets", "hub", "--k", "2", "--Q", "10"]) == 0
     rows = _jsonl_rows(next(out.glob("results_unweighted_break_2*.jsonl")))
     assert [r["method"] for r in rows] == ["GREEDY_KRYLOV_BREAK", "MIOBI",
                                            "EIGENV"]
@@ -143,6 +143,20 @@ def test_cli_unweighted_reads_a_misc_root(tmp_path, monkeypatch):
     inter = _csv_rows(next(out.glob(
         "results_unweighted_break_intersections_*.csv")))
     assert len(inter) == 1 and inter[0]["dataset"] == "hub"
+
+
+def test_cli_runs_on_the_card_unless_given_cpu(tmp_path, monkeypatch):
+    """Without --cpu the CLI asks for cuda:0: on a machine without CUDA it
+    raises before it loads anything, and never carries on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    _write_mat(tmp_path / "data", "Transport", "toy", small_graph())
+    monkeypatch.setattr(tio, "DEFAULT_DATA_ROOTS", (str(tmp_path / "data"),))
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--out-dir", str(out), "budget", "--mode", "break",
+              "--datasets", "toy", "--search-spaces", "6", "--budgets", "2"])
+    assert not out.exists()
 
 
 @pytest.mark.parametrize("cmd", sorted(NOT_PORTED))

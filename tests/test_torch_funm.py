@@ -150,9 +150,21 @@ def test_mc_trace_exact_once_deflation_spans():
     U = np.linalg.qr(rng.standard_normal((40, 5)))[0]
     D = torch.as_tensor(U @ np.diag([5.0, 4.0, 3.0, 2.0, 1.0]) @ U.T)
     tr, res, its = ttrace.mc_trace(lambda x: D @ x, 40, tol=1e-12,
-                                   maxit=300)
+                                   maxit=300, device="cpu")
     np.testing.assert_allclose(tr, 15.0, rtol=1e-12)
     assert its == 2 and res < 1e-10
+
+
+def test_mc_trace_takes_an_explicit_device():
+    """No default device: omitting it is a TypeError, and a CUDA request on
+    a machine without CUDA raises instead of running on the CPU."""
+    D = torch.eye(20, dtype=torch.float64)
+    with pytest.raises(TypeError, match="device"):
+        ttrace.mc_trace(lambda x: D @ x, 20)
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttrace.mc_trace(lambda x: D @ x, 20, device="cuda")
 
 
 @pytest.mark.parametrize("kind", ["eig", "deg", "pr", "res", "exp"])

@@ -1,5 +1,5 @@
-"""The PyTorch port imports no JAX and nothing of the JAX package, and its
-smoke script refuses to run without CUDA."""
+"""The PyTorch port and its smoke script import no JAX and nothing of the
+JAX package, and the smoke script refuses to run without CUDA."""
 
 import os
 import pkgutil
@@ -24,7 +24,9 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    assert {"krylov_robustness_torch.ops.bsr_super",
+    assert {"krylov_robustness_torch.bench",
+            "krylov_robustness_torch.ops.bsr",
+            "krylov_robustness_torch.ops.bsr_super",
             "krylov_robustness_torch.ops.banded_spmm",
             "krylov_robustness_torch.ops.cuda_build",
             "krylov_robustness_torch.experiments.__main__",
@@ -56,7 +58,8 @@ def test_every_module_imports_without_jax():
 
 
 def test_port_sources_never_name_jax():
-    for path in (ROOT / "krylov_robustness_torch").rglob("*.py"):
+    for path in [ROOT / "chip_smoke.py",
+                 *(ROOT / "krylov_robustness_torch").rglob("*.py")]:
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
         assert "krylov_robustness_tpu import" not in text, path
