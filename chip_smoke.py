@@ -9,18 +9,20 @@ Phases, each of which raises on failure (exit code 1):
 
 1. device: the card's name and power limit, torch/CUDA versions, TF32 off;
 2. build: compile the kernels K1/K2 (``csrc/bsr_super.cu``), K3
-   (``csrc/banded_ell.cu``) and K4 (``csrc/bsr_flat.cu``) with nvcc, one
-   process per source, in parallel;
+   (``csrc/banded_ell.cu``) and K4 (``csrc/bsr_flat.cu``; K1 and K4 share the
+   row gather of ``csrc/row_gather.cuh``) with nvcc, one process per source,
+   in parallel;
 3. kernels: each kernel against its plain torch version and scipy, with
    CUDA-event times beside the plain version's, the COO SpMM's and one
    cuSPARSE call's (``torch.sparse.mm`` on a CSR tensor, the yardstick the
-   port never calls), and its bound (the larger of the product's bytes — A
-   as CSR, x read once, y written once — at the HBM rate and 2·nnz·b at its
-   unit's peak) beside its design time (its stored tables in place of CSR),
-   on a road network at Vermont's scale and
-   a hub graph at ca-AstroPh's scale (both RCM-permuted), at b = 512 and at
-   the main paths' widths (K3 at b = 1, 100, 512 in f32 and 100 in f64, K4
-   at b = 1, 100, 500, 512 in f32 and 512 in f64, on the road graph); the
+   port never calls) and the kernel's time over it, and its bound (the
+   larger of the product's bytes — A as CSR, x read once, y written once —
+   at the HBM rate and 2·nnz·b at its unit's peak) beside its design time
+   (its stored tables in place of CSR), on a road network at Vermont's scale
+   and a hub graph at ca-AstroPh's scale (both RCM-permuted), at b = 512 and
+   at the main paths' widths (K1 also at b = 250, K3 at b = 1, 100, 512 in
+   f32 and 100 in f64, K4 at b = 1, 100, 250, 500, 512 in f32 and 512 in
+   f64, on the road graph); the
    hub graph's flat blocks exceed their budget, so ``make_bsr_operator``
    falls back to COO there;
 4. greedy path, road graph: ``greedy_krylov`` break/make on the per-step
@@ -38,7 +40,8 @@ Phases, each of which raises on failure (exit code 1):
    the hub graph), its JSON line printed as it is;
 9. replay: copies of the inputs of the last launch of each kernel at each
    shape of phases 4-8 (outside the bench's timed lanes), rerun through the
-   kernel and its plain version.
+   kernel and its plain version (for K1 and K4 over the tiles or blocks that
+   their row index implies).
 
 Each path (4-5, 6, 7, 8) runs with every launch count set to 0 just before
 it and read just after. The line before the last is a JSON object with one
@@ -136,11 +139,12 @@ def phase_build():
 # Kernel modes held against their plain versions in phase 3, per graph: every
 # mode at b = 512, and the widths the main path gives the kernels — 2·Q = 500
 # in a per-step scoring call, 2·(Q + R) = 520 in a fused block — in the modes
-# it runs them (the capture of the main path checks that none is missed).
+# it runs them (the capture of the main path checks that none is missed);
+# b = 250, not a multiple of 4, takes K1's two-columns-a-lane path.
 MODES = {"bf16x2": ("bf16x2", torch.float32), "bf16x3": ("bf16x3", torch.float32),
          "f32": ("f32", torch.float32), "f64": ("f32", torch.float64)}
 KERNEL_CASES = {
-    "road": (("bf16x2", (512, 500)), ("bf16x3", (512,)), ("f32", (512,)),
+    "road": (("bf16x2", (512, 500, 250)), ("bf16x3", (512,)), ("f32", (512,)),
              ("f64", (512, 500))),
     "hub": (("bf16x2", (500, 520)), ("f32", (500,))),
 }
@@ -219,8 +223,11 @@ def timed_case(op, Ap, x, unit: str, diff: float) -> dict:
 
 
 def case_text(st: dict) -> str:
-    """The yardstick, bound and design time of one timed case, as text."""
-    return (f"cusparse {st['library_ms']:.4f} ms bound {st['bound_ms']:.4f} "
+    """The yardstick, the kernel's time over it, the bound and the design
+    time of one timed case, as text."""
+    return (f"cusparse {st['library_ms']:.4f} ms (kernel "
+            f"{st['ms'] / st['library_ms']:.2f}x cusparse) bound "
+            f"{st['bound_ms']:.4f} "
             f"ms ({st['bound_by']}) design {st['design_bytes'] / 1e6:.1f} MB "
             f"{st['design_ms']:.4f} ms")
 
@@ -247,8 +254,7 @@ def phase_kernels(dev, graphs) -> dict:
         for label, widths in cases:
             mode, dtype = MODES[label]
             op = SuperBsrOperator(Ap, dtype=dtype, device=dev, mode=mode)
-            unit = ("bf16" if mode != "f32" else
-                    "ffma" if dtype == torch.float32 else "dfma")
+            unit = "ffma" if dtype == torch.float32 else "dfma"
             for b in widths:
                 x, errs, diff = hold(op, Ap, x64[:, :b], dtype, dev, label,
                                      f"{name} {label} b={b}")
@@ -268,13 +274,14 @@ def phase_kernels(dev, graphs) -> dict:
 
 
 # (dtype, label, b) of the road-graph kernels. K3: a vector, the budget
-# sweep's 2·Q = 100 at Q = 50, and b = 512. K4: a vector, b = 100, the
-# per-step scoring width 2·Q = 500 and the bench's b = 512; f64 at the
-# bench's width.
+# sweep's 2·Q = 100 at Q = 50, and b = 512. K4: a vector, b = 100, b = 250
+# (not a multiple of 4: two columns a lane), the per-step scoring width
+# 2·Q = 500 and the bench's b = 512; f64 at the bench's width.
 BANDED_CASES = ((torch.float32, "f32", 1), (torch.float32, "f32", 100),
                 (torch.float32, "f32", 512), (torch.float64, "f64", 100))
 FLAT_CASES = ((torch.float32, "f32", 1), (torch.float32, "f32", 100),
-              (torch.float32, "f32", 500), (torch.float32, "f32", 512),
+              (torch.float32, "f32", 250), (torch.float32, "f32", 500),
+              (torch.float32, "f32", 512),
               (torch.float64, "f64", 512))
 
 
@@ -332,11 +339,11 @@ def phase_road_kernels(dev, A) -> dict:
         return f"K={op.K} bw={bw} windows={num_windows(bw)}"
 
     def flat(op, n, nnz, b, ms):
-        # what the dense-block design computes: every block whole
-        dense_gflop = 2.0 * op.nblocks * BLK * BLK * b / 1e9
+        # the row gather reads one x row slice per entry
+        gathered = nnz * b * op.ablocks.element_size()
         return (f"blocks={op.nblocks} ({op.storage_bytes() / 1e6:.1f} MB, "
-                f"fill {nnz / (op.nblocks * BLK * BLK):.4%}, "
-                f"{dense_gflop / ms:.2f} dense TFLOP/s)")
+                f"fill {nnz / (op.nblocks * BLK * BLK):.4%}, gathers "
+                f"{gathered / 1e6:.1f} MB at {gathered / ms / 1e9:.3f} TB/s)")
 
     stats = phase_road_kernel(
         dev, A, "K3", lambda Ap, dt: BandedEllOperator(Ap, dtype=dt,
@@ -379,9 +386,11 @@ class MainPathCapture:
     kernel at each (tiles, n, b, mode) the main path gives it, so that
     ``replay`` can hold every such shape, on the inputs it was launched on,
     against the plain version. The last launch carries the deepest Lanczos
-    block, the densest x of the run. Inside :meth:`pause` (the bench's timed
-    lanes) it keeps nothing, so that it adds no device work to what is
-    timed. The wrappers keep their own launch counts; this adds none."""
+    block, the densest x of the run. K1's and K4's row index is frozen (edits
+    change values only), so it is copied once per shape. Inside
+    :meth:`pause` (the bench's timed lanes) it keeps nothing, so that it adds
+    no device work to what is timed. The wrappers keep their own launch
+    counts; this adds none."""
 
     def __init__(self):
         from krylov_robustness_torch.ops import banded_spmm, bsr, bsr_super
@@ -401,17 +410,26 @@ class MainPathCapture:
         finally:
             self.paused = False
 
-    def _keep(self, key, args):
+    def _keep(self, key, args, frozen: int = 0):
+        """Copies of a launch's inputs ``args`` under ``key``. The first
+        ``frozen`` of them (a row index) are copied again only when other
+        tensors than the last launch's arrive."""
         if self.paused:
             return
-        self.kept.pop(key, None)
-        self.kept[key] = tuple(a.clone() for a in args)
+        prev = self.kept.pop(key, None)
+        head = args[:frozen]
+        if prev is not None and all(a is b for a, b in zip(head, prev[0])):
+            copies = prev[1][:frozen]
+        else:
+            copies = tuple(a.clone() for a in head)
+        self.kept[key] = (head, copies + tuple(a.clone()
+                                               for a in args[frozen:]))
 
     def __enter__(self):
-        def k1(atiles, slab, sup_ptr, blkmask, x, terms):
+        def k1(row_ptr, cols, val_off, atiles, x, terms):
             self._keep(("K1", f"bf16x{terms}", atiles.shape[0], *x.shape),
-                       (atiles, slab, sup_ptr, blkmask, x))
-            return self.k1(atiles, slab, sup_ptr, blkmask, x, terms)
+                       (row_ptr, cols, val_off, atiles, x), frozen=3)
+            return self.k1(row_ptr, cols, val_off, atiles, x, terms)
 
         def k2(atiles, slab, sup_ptr, blkmask, x):
             label = "f32" if x.dtype == torch.float32 else "f64"
@@ -425,11 +443,11 @@ class MainPathCapture:
                        (cols, vals, x))
             return self.k3(cols, vals, x)
 
-        def k4(ablocks, cb, row_ptr, x):
+        def k4(row_ptr, cols, val_off, ablocks, x):
             label = "f32" if x.dtype == torch.float32 else "f64"
             self._keep(("K4", label, ablocks.shape[0], *x.shape),
-                       (ablocks, cb, row_ptr, x))
-            return self.k4(ablocks, cb, row_ptr, x)
+                       (row_ptr, cols, val_off, ablocks, x), frozen=3)
+            return self.k4(row_ptr, cols, val_off, ablocks, x)
 
         self.mod.tile_spmm_bf16, self.mod.tile_spmm_full = k1, k2
         self.ell.ell_spmm = k3
@@ -445,47 +463,63 @@ class MainPathCapture:
         """Each kept launch, rerun through its kernel and its plain version;
         returns the largest kernel-plain difference per kernel."""
         worst = {}
-        for key, args in self.kept.items():
+        for key, (_, args) in self.kept.items():
             kernel, label, size, n, b = key
             if kernel == "K3":
                 cols, vals, x = args
                 yk = self.k3(cols, vals, x)
                 yp = self.ell.ell_spmm_plain(cols.long(), vals, x)
-                worst[kernel] = max(worst.get(kernel, 0.0), self._check(
-                    f"{kernel} {label} K={size} n={n} b={b}", label, x, yk,
-                    yp))
-                continue
-            if kernel == "K4":
-                ablocks, cb, row_ptr, x = args
-                nrb = row_ptr.numel() - 1
-                rb = torch.repeat_interleave(
-                    torch.arange(nrb, device=x.device), torch.diff(row_ptr))
-                x_pad = torch.zeros((nrb * self.flat.BLK, b), dtype=x.dtype,
+                where = f"{kernel} {label} K={size} n={n} b={b}"
+            elif kernel == "K4":
+                row_ptr, cols, val_off, ablocks, x = args
+                blk = self.flat.BLK
+                rb, cb = self._owners(row_ptr, cols, val_off, ablocks.shape)
+                x_pad = torch.zeros((-(-n // blk) * blk, b), dtype=x.dtype,
                                     device=x.device)
                 x_pad[:n] = x
-                yk = self.k4(ablocks, cb, row_ptr, x)
+                yk = self.k4(row_ptr, cols, val_off, ablocks, x)
                 yp = self.flat.bsr_spmm_plain(ablocks, cb, rb, x_pad)[:n]
-                worst[kernel] = max(worst.get(kernel, 0.0), self._check(
-                    f"{kernel} {label} blocks={size} n={n} b={b}", label, x,
-                    yk, yp))
-                continue
-            atiles, slab, sup_ptr, blkmask, x = args
-            nsup, tile_r = sup_ptr.numel() - 1, atiles.shape[1]
-            sup = torch.repeat_interleave(
-                torch.arange(nsup, device=x.device), torch.diff(sup_ptr))
-            if kernel == "K1":
+                where = f"{kernel} {label} blocks={size} n={n} b={b}"
+            elif kernel == "K1":
+                row_ptr, cols, val_off, atiles, x = args
+                _, tile_r, tile_c = atiles.shape
+                sup, slab = self._owners(row_ptr, cols, val_off, atiles.shape)
                 terms = int(label[-1])
-                yk = self.k1(atiles, slab, sup_ptr, blkmask, x, terms)
-                yp = self.mod.tile_spmm_bf16_plain(atiles, slab, sup, x,
-                                                   nsup * tile_r, terms)
+                yk = self.k1(row_ptr, cols, val_off, atiles, x, terms)
+                yp = self.mod.tile_spmm_bf16_plain(
+                    atiles, slab, sup, x, self.mod._n_pad(n, tile_r, tile_c),
+                    terms)
+                where = f"{kernel} {label} tiles={size} n={n} b={b}"
             else:
+                atiles, slab, sup_ptr, blkmask, x = args
+                nsup, tile_r = sup_ptr.numel() - 1, atiles.shape[1]
+                sup = torch.repeat_interleave(
+                    torch.arange(nsup, device=x.device), torch.diff(sup_ptr))
                 yk = self.k2(atiles, slab, sup_ptr, blkmask, x)
                 yp = self.mod.tile_spmm_full_plain(atiles, slab, sup, x,
                                                    nsup * tile_r)
-            worst[kernel] = max(worst.get(kernel, 0.0), self._check(
-                f"{kernel} {label} tiles={size} n={n} b={b}", label, x, yk,
-                yp))
+                where = f"{kernel} {label} tiles={size} n={n} b={b}"
+            worst[kernel] = max(worst.get(kernel, 0.0),
+                                self._check(where, label, x, yk, yp))
         return worst
+
+    @staticmethod
+    def _owners(row_ptr, cols, val_off, shape):
+        """(row group, column group) of each tile or block of ``shape``
+        (count, height, width), from a row index into its flattened storage:
+        every entry lies in its own. One without entries (the packing's
+        fill-in for an empty row group) is all zero, so it adds nothing
+        wherever it is placed: (0, 0)."""
+        count, height, width = shape
+        n = row_ptr.numel() - 1
+        rows = torch.repeat_interleave(
+            torch.arange(n, device=row_ptr.device), torch.diff(row_ptr).long())
+        t = val_off.long() // (height * width)
+        rg = torch.zeros(count, dtype=torch.long, device=row_ptr.device)
+        cg = torch.zeros_like(rg)
+        rg[t] = rows // height
+        cg[t] = cols.long() // width
+        return rg, cg
 
     @staticmethod
     def _check(where, label, x, yk, yp) -> float:
@@ -634,8 +668,8 @@ def phase_hub(dev, A) -> None:
           f"{wall:.2f} s")
     same_picks_or_floor("hub fused vs per-step", r, rs, tol,
                         fused_floor(A, lognrm, sigma))
-    # the per-step lane on the plain COO SpMM: holds K1 on the hub's nearly
-    # full tiles against an SpMM that shares no code with it
+    # the per-step lane on the plain COO SpMM: holds K1 on the hub graph
+    # against an SpMM that shares no code with it
     rc = greedy_krylov(A, 20, 250, c, order="min", tol=tol, mode="break",
                        dtype=torch.float32, backend="coo", shift=sigma,
                        fused_steps=0, device=dev)

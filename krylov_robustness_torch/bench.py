@@ -51,7 +51,7 @@ import torch
 # H100 SXM at 700 W (NVIDIA's data sheet): HBM rate in GB/s, and the peak
 # TFLOP/s of the unit each lane computes on
 HBM_GBPS = 3350.0
-PEAK_TFLOPS = {"ffma": 67.0, "dfma": 34.0, "bf16": 989.0}
+PEAK_TFLOPS = {"ffma": 67.0, "dfma": 34.0}
 B = 512
 ITERS = 50
 ACC_GATE = 1e-5
@@ -170,24 +170,38 @@ def card() -> str:
 
 
 # -- SpMM lanes --------------------------------------------------------------
-# the tensors each operator's SpMM reads besides x, its values first
+# the tensors each operator's SpMM reads besides x, its values first. K1 and
+# K4 read nnz values out of their tile or block storage through val_off; K2
+# (a super-tile operator in mode 'f32') reads its tiles whole.
 _TABLES = {"CooMatrix": ("vals", "rows", "cols"),
            "BandedEllOperator": ("vals", "cols"),
-           "BsrOperator": ("ablocks", "cb", "row_ptr"),
-           "SuperBsrOperator": ("atiles", "_slab", "_sup_ptr", "_blkmask")}
+           "BsrOperator": ("ablocks", "row_ptr", "cols", "val_off"),
+           "SuperBsrOperator": ("atiles", "_row_ptr", "_cols", "_val_off")}
+_K2_TABLES = ("atiles", "_slab", "_sup_ptr", "_blkmask")
+
+
+def _tables(op) -> tuple:
+    kind = type(op).__name__
+    return _K2_TABLES if kind == "SuperBsrOperator" and op.mode == "f32" \
+        else _TABLES[kind]
 
 
 def table_bytes(op) -> int:
-    """Bytes of the stored tables an operator's SpMM reads."""
-    return sum(getattr(op, name).numel() * getattr(op, name).element_size()
-               for name in _TABLES[type(op).__name__])
+    """Bytes of the stored tables an operator's SpMM reads: its index
+    tensors whole, and its values whole or, for K1 and K4, the nnz values
+    they gather."""
+    names = _tables(op)
+    values, *index = (getattr(op, name) for name in names)
+    count = op.nnz if names[-1].endswith("val_off") else values.numel()
+    nbytes = count * values.element_size()
+    return nbytes + sum(t.numel() * t.element_size() for t in index)
 
 
 def function_bytes(op, n: int, nnz: int, b: int, x_size: int) -> int:
     """Bytes y = A·x must move however A is stored: A as CSR with ``op``'s
     value type (a value and an int32 column index a nonzero, n + 1 int32
     row pointers), x read once and y written once."""
-    value_size = getattr(op, _TABLES[type(op).__name__][0]).element_size()
+    value_size = getattr(op, _tables(op)[0]).element_size()
     return nnz * (value_size + 4) + (n + 1) * 4 + 2 * n * b * x_size
 
 
@@ -269,10 +283,10 @@ def spmm_lanes(A, b: int, iters: int, device) -> list[dict]:
         lanes += [
             ("flat_f32", "ffma",
              lambda: BsrOperator(Ap, dtype=torch.float32, device=dev)),
-            ("super_bf16x2_512x256", "bf16",
+            ("super_bf16x2_512x256", "ffma",
              lambda: SuperBsrOperator(Ap, dtype=torch.float32, device=dev,
                                       mode="bf16x2", tile=(512, 256))),
-            ("super_bf16x3_512x256", "bf16",
+            ("super_bf16x3_512x256", "ffma",
              lambda: SuperBsrOperator(Ap, dtype=torch.float32, device=dev,
                                       mode="bf16x3", tile=(512, 256))),
         ]

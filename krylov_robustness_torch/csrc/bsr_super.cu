@@ -1,45 +1,58 @@
-// Super-tile block-sparse SpMM for Hopper (sm_90a), bound to Python with ctypes.
+// Super-tile SpMM kernels for Hopper (sm_90a), bound to Python with ctypes.
 //
 // Replaces the Pallas TPU kernels of krylov_robustness_tpu/ops/pallas_bsr_super.py:
-//   K1  bsr_super_bf16_kernel  <-  _kernel_bf16 (launched by _tile_spmm_bf16)
-//   K2  bsr_super_full_kernel  <-  _kernel_f32  (launched by _tile_spmm_f32)
+//   K1  row_gather_kernel<bf16, float, terms> (csrc/row_gather.cuh)
+//         <-  _kernel_bf16 (:97, launched by _tile_spmm_bf16 at :181)
+//   K2  bsr_super_full_kernel  <-  _kernel_f32 (:82, launched at :135)
 //
-// What they compute. The (RCM-permuted) adjacency is packed into dense
-// tile_r x tile_c super-tiles (default 512 x 256), sorted by super-row; tile t
-// covers rows sup(t)*tile_r.. and columns slab[t]*tile_c... Then
-//   y[rows of super-row s] = sum over tiles t of s of  A_tile[t] @ x[cols of slab[t]].
-// K1 stores A in bf16 (0/+-1 adjacency is bf16-exact) and splits each f32 x
-// value into `terms` bf16 parts (hi, lo, lo2) on load; every part runs through
-// the bf16 tensor cores with f32 accumulation, so y = A x to ~2^-18 (2 terms) or
-// ~2^-27 (3 terms) relative. K2 is the same schedule in full f32 or f64 with
-// plain FFMA/DFMA (no TF32), for values that are not bf16-exact and for f64.
+// The (RCM-permuted) adjacency is packed into dense tile_r x tile_c
+// super-tiles (default 512 x 256), sorted by super-row; tile t covers rows
+// sup(t)*tile_r.. and columns slab[t]*tile_c...
 //
-// Schedule. On the TPU the grid ran tile by tile in order and accumulated into a
-// resident y tile. Here one CTA owns one (64-row strip of a super-row, 64-column
-// batch tile) of y: it walks that super-row's tiles (sup_ptr[s] .. sup_ptr[s+1])
-// in a loop, keeps the sum in registers and writes y once. No atomics, no
-// second pass, and the `start` flags of the TPU packing are not needed.
+// K1: y (n, b) f32 = A x for bf16 tile values (0/+-1 adjacency is
+// bf16-exact) and f32 x split into `terms` bf16 parts, y = A x to ~2^-18 (2
+// terms) or ~2^-27 (3 terms) relative. It is a row gather over a CSR row
+// index of the packing (row_ptr, cols, and val_off, the offset of each
+// entry's value in the flattened tiles): a warp walks the entries of a run of
+// consecutive rows, each lane owns four consecutive columns of a 128-column
+// slice (one 16-byte load), and every entry is one coalesced load of an x row
+// slice; x is split into its bf16 parts in registers and each part's
+// products accumulate in an f32 sum of their own (row_gather.cuh). The tiles
+// stay the only copy of the values and are read at the entries only.
 //
-// What bounds it on the H100. The tiles are nearly empty: on a road network at
-// Vermont's scale a 512 x 256 tile is ~0.2% dense, so a dense-tile product
-// would spend ~500x more tensor-core MACs (and A bytes) than the nnz*b useful
-// work. The kernel is fill-bound, not HBM-bound. What the design does about it:
-// each tile carries a structural bitmap of its 64 x 32 sub-blocks (built at pack
-// time from the sparsity pattern, which frozen-structure edits never change),
-// and a CTA skips every sub-block that holds no entry: no load, no MMA. What is
-// left is the fill inside the occupied sub-blocks, plus the x re-reads, one per
-// occupied sub-block. Faster variants (wgmma/TMA pipelines, a tile shape chosen
-// for Hopper) are later work.
+// Why the tiles and tensor cores were dropped for K1. The TPU packs tiles
+// because its matrix unit is dense and Mosaic cannot gather. The tiles are
+// nearly empty: on a Chung-Lu hub graph at ca-AstroPh's scale (n = 18,772,
+// 395,524 nonzeros, 2,538 tiles) a 64 x 32 sub-block holds ~2.3 nonzeros, so
+// a tensor-core schedule over the occupied sub-blocks did ~665 GFLOP of bf16
+// work for 0.4 GFLOP of useful work, and at the card's full 989 TFLOP/s that
+// alone takes ~0.67 ms, above cuSPARSE's product on the same graph (NVIDIA
+// H100 80GB HBM3, 700 W). Hopper gathers cheaply, and a gather pays for the
+// nonzeros only.
+//
+// What bounds K1 on the H100: bytes. x is read from HBM about once per
+// column slice (the slice stays in L2 while every row group gathers from
+// it), y is written once, and the gathers, nnz * b * 4 bytes, come from L2
+// and L1: ~790 MB at b = 500 on that hub graph, ~845 MB at b = 512 on a road
+// network at Vermont's scale, against ~80 MB and ~392 MB through HBM. On the
+// hub graph the gathers miss L1 (no locality in any node order), and their
+// rate from L2 sets the time (PERF.md).
+//
+// K2 is the dense-tile schedule in full f32 or f64 with plain FFMA/DFMA (no
+// TF32), for values that are not bf16-exact and for f64: one CTA owns one
+// (64-row strip of a super-row, 64-column batch tile) of y, walks that
+// super-row's tiles (sup_ptr[s] .. sup_ptr[s+1]), keeps the sum in registers
+// and writes y once. Each tile carries a structural bitmap of its 64 x 32
+// sub-blocks (built at pack time; frozen-structure edits never change it), and
+// a CTA skips every sub-block that holds no entry.
 //
 // Every entry point launches on the given stream, allocates nothing and returns
 // cudaGetLastError() (0 = success).
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "row_gather.cuh"
 
 namespace {
 
@@ -48,137 +61,6 @@ namespace {
 constexpr int BM = 64;  // y rows per CTA (strip of a super-row)
 constexpr int BN = 64;  // batch columns per CTA
 constexpr int BK = 32;  // tile columns per reduction chunk (= one bitmap bit)
-
-// K1 shared-memory strides (elements). bf16 strides are multiples of 8 and the
-// f32 stride a multiple of 4, as wmma requires; the padding breaks bank
-// conflicts. Every fragment pointer below lands on a 32-byte boundary.
-constexpr int A_LD = BK + 8;
-constexpr int X_LD = BN + 8;
-constexpr int C_LD = BN + 4;
-
-template <int TERMS>
-__global__ void __launch_bounds__(128) bsr_super_bf16_kernel(
-    const __nv_bfloat16* __restrict__ atiles, const int* __restrict__ slab,
-    const int* __restrict__ sup_ptr, const uint8_t* __restrict__ blkmask,
-    const float* __restrict__ x, float* __restrict__ y, int tile_r,
-    int tile_c, int n, int b) {
-  __shared__ __align__(128) __nv_bfloat16 As[BM * A_LD];
-  __shared__ __align__(128) __nv_bfloat16 Xs[TERMS][BK * X_LD];
-  __shared__ __align__(128) float Cs[BM * C_LD];
-
-  const int strips = tile_r / BM;
-  const int kblocks = tile_c / BK;
-  const int s = blockIdx.x / strips;
-  const int strip = blockIdx.x % strips;
-  const int row0 = s * tile_r + strip * BM;
-  const int col0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2;  // 2 x 2 warps, 32 x 32 of y each
-  const int wn = warp % 2;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int t_end = sup_ptr[s + 1];
-  for (int t = sup_ptr[s]; t < t_end; ++t) {
-    const uint8_t* bits = blkmask + ((size_t)t * strips + strip) * kblocks;
-    const __nv_bfloat16* a_strip =
-        atiles + (size_t)t * tile_r * tile_c + (size_t)strip * BM * tile_c;
-    const int xrow0 = slab[t] * tile_c;
-    for (int kb = 0; kb < kblocks; ++kb) {
-      if (!bits[kb]) continue;  // uniform across the CTA
-      // A sub-block (BM x BK bf16) as 16-byte vectors
-      for (int v = tid; v < BM * BK / 8; v += blockDim.x) {
-        const int r = v / (BK / 8);
-        const int c = (v % (BK / 8)) * 8;
-        *reinterpret_cast<uint4*>(&As[r * A_LD + c]) =
-            *reinterpret_cast<const uint4*>(a_strip + (size_t)r * tile_c +
-                                            kb * BK + c);
-      }
-      // x rows of this sub-block, split into TERMS bf16 parts on load
-      for (int e = tid; e < BK * BN; e += blockDim.x) {
-        const int r = e / BN;
-        const int c = e % BN;
-        const int gr = xrow0 + kb * BK + r;
-        const int gc = col0 + c;
-        float rem = (gr < n && gc < b) ? x[(size_t)gr * b + gc] : 0.0f;
-#pragma unroll
-        for (int k = 0; k < TERMS; ++k) {
-          const __nv_bfloat16 h = __float2bfloat16_rn(rem);
-          Xs[k][r * X_LD + c] = h;
-          rem -= __bfloat162float(h);
-        }
-      }
-      __syncthreads();
-      // The hi term accumulates straight into the running sum. The lower
-      // terms of this sub-block go to a fresh tensor-core accumulator of
-      // their own, added to the running sum with round-to-nearest f32 adds:
-      // the tensor cores' accumulation truncates, and this keeps the small
-      // terms from being added (and truncated) at the magnitude of y.
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> lo[2][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(lo[i][j], 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            af[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(af[i], &As[(wm * 32 + i * 16) * A_LD + kk],
-                                 A_LD);
-#pragma unroll
-        for (int k = 0; k < TERMS; ++k) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major>
-              bf[2];
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::load_matrix_sync(
-                bf[j], &Xs[k][kk * X_LD + wn * 32 + j * 16], X_LD);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              if (k == 0)
-                wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
-              else
-                wmma::mma_sync(lo[i][j], af[i], bf[j], lo[i][j]);
-            }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int e = 0; e < acc[i][j].num_elements; ++e)
-            acc[i][j].x[e] += lo[i][j].x[e];
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[(wm * 32 + i * 16) * C_LD + wn * 32 + j * 16],
-                              acc[i][j], C_LD, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < BM * BN; e += blockDim.x) {
-    const int r = e / BN;
-    const int c = e % BN;
-    const int gr = row0 + r;
-    const int gc = col0 + c;
-    if (gr < n && gc < b) y[(size_t)gr * b + gc] = Cs[r * C_LD + c];
-  }
-}
 
 __device__ __forceinline__ float fused_madd(float a, float b, float c) {
   return fmaf(a, b, c);
@@ -285,35 +167,22 @@ int launch_full(const void* atiles, const void* slab, const void* sup_ptr,
 
 extern "C" {
 
-// K1: y (n, b) f32 = A (bf16 tiles) @ x (n, b) f32, x split into `terms` bf16
-// parts (2 or 3).
-int krt_bsr_super_bf16(const void* atiles, const void* slab,
-                       const void* sup_ptr, const void* blkmask, const void* x,
-                       void* y, int nsup, int tile_r, int tile_c, int n, int b,
-                       int terms, void* stream) {
-  if (bad_shape(nsup, tile_r, tile_c, n, b))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(nsup * (tile_r / BM), (b + BN - 1) / BN);
-  cudaStream_t st = (cudaStream_t)stream;
-  const __nv_bfloat16* a = (const __nv_bfloat16*)atiles;
-  const int* sl = (const int*)slab;
-  const int* sp = (const int*)sup_ptr;
-  const uint8_t* bm = (const uint8_t*)blkmask;
-  const float* xf = (const float*)x;
-  float* yf = (float*)y;
+// K1: y (n, b) f32 = A x (n, b) f32 over the row index (row_ptr n + 1,
+// cols and val_off nnz, int32) into the flattened bf16 tiles, x split into
+// `terms` bf16 parts (2 or 3).
+int krt_bsr_super_bf16(const void* row_ptr, const void* cols,
+                       const void* val_off, const void* atiles, const void* x,
+                       void* y, int n, int b, int terms, void* stream) {
   switch (terms) {
     case 2:
-      bsr_super_bf16_kernel<2><<<grid, 128, 0, st>>>(a, sl, sp, bm, xf, yf,
-                                                     tile_r, tile_c, n, b);
-      break;
+      return row_gather::launch<__nv_bfloat16, float, 2>(
+          row_ptr, cols, val_off, atiles, x, y, n, b, stream);
     case 3:
-      bsr_super_bf16_kernel<3><<<grid, 128, 0, st>>>(a, sl, sp, bm, xf, yf,
-                                                     tile_r, tile_c, n, b);
-      break;
+      return row_gather::launch<__nv_bfloat16, float, 3>(
+          row_ptr, cols, val_off, atiles, x, y, n, b, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 // K2 in f32: y (n, b) = A (f32 tiles) @ x (n, b), FFMA only.

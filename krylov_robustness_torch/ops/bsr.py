@@ -10,10 +10,13 @@ none), so every y row is written. The packing (``ablocks``, ``cb``, ``rb``,
 keeps them.
 
 K4 (``csrc/bsr_flat.cu``) computes ``A @ x`` over that packing in full f32
-or f64 (FFMA/DFMA, never TF32) and replaces ``_bsr_kernel``: one CTA owns a
-(128-row block, 64-column slice) of y, walks the row block's blocks from a
-row pointer derived from ``rb`` and writes y once. Beside it is its plain
-torch version (a batched block product plus ``index_add_`` by row block);
+or f64 (FFMA/DFMA, never TF32) and replaces ``_bsr_kernel``. It is a row
+gather (``csrc/row_gather.cuh``) over a CSR row index of the packing
+(``row_ptr``, ``cols`` and ``val_off``, each entry's offset in the flattened
+blocks, built once by the operator): each entry's value is read out of the
+blocks, which stay the only copy of the values, and no fill is computed.
+Beside it is its plain torch version (a batched block product plus
+``index_add_`` by row block);
 :meth:`BsrOperator.matmul` runs it for CPU tensors only, and a CUDA tensor
 launches the kernel or raises.
 
@@ -31,7 +34,7 @@ import scipy.sparse as sp
 import torch
 
 from ..utils.device import float_dtype, resolve_device
-from . import cuda_build
+from . import cuda_build, row_gather
 from .sparse import CooMatrix
 
 BLK = 128
@@ -135,52 +138,34 @@ def _library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for name in ("krt_bsr_flat_f32", "krt_bsr_flat_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+            fn.argtypes = [ptr] * 6 + [i32] * 2 + [ptr]
             fn.restype = i32
         _LIB = lib
     return _LIB
 
 
-def bsr_spmm(ablocks: torch.Tensor, cb: torch.Tensor, row_ptr: torch.Tensor,
+def bsr_spmm(row_ptr: torch.Tensor, cols: torch.Tensor,
+             val_off: torch.Tensor, ablocks: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
-    """K4: y (n, b) = A @ x on the card, for f32/f64 ``ablocks`` (nblk, 128,
-    128) sorted by row block, int32 ``cb`` (nblk) and ``row_ptr`` (row
-    blocks + 1), and x (n, b) in the dtype of ``ablocks``."""
+    """K4: y (n, b) = A @ x on the card for x (n, b) in f32 or f64, A's
+    values gathered out of the blocks ``ablocks`` (in x's dtype) through the
+    int32 row index (``row_ptr`` of n + 1, ``cols`` and ``val_off`` of nnz;
+    see :mod:`.row_gather`)."""
     global launches_bsr
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"the flat BSR kernel runs on CUDA tensors, got {dev}")
     if x.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"K4 takes float32 or float64, got {x.dtype}")
-    for name, t, dt in (("ablocks", ablocks, x.dtype), ("cb", cb, torch.int32),
-                        ("row_ptr", row_ptr, torch.int32), ("x", x, x.dtype)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, x on {dev}")
-        if t.dtype != dt:
-            raise ValueError(f"{name} must be {dt}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if ablocks.ndim != 3 or ablocks.shape[1:] != (BLK, BLK) \
-            or cb.shape != ablocks.shape[:1]:
-        raise ValueError(f"ablocks {tuple(ablocks.shape)} and cb "
-                         f"{tuple(cb.shape)} do not form (nblk, 128, 128) "
-                         f"blocks")
-    nrb = row_ptr.shape[0] - 1
-    if x.ndim != 2 or 0 in x.shape or x.shape[0] > nrb * BLK \
-            or nrb * BLK > 2**31 - 1:
-        raise ValueError(f"x must be a non-empty (n, b) matrix with n <= "
-                         f"{nrb * BLK} rows, got {tuple(x.shape)}")
+    row_gather.check_launch("K4", row_ptr, cols, val_off, ablocks, x,
+                            x.dtype, x.dtype)
     n, b = x.shape
-    if nrb * ((b + 63) // 64) > 2**31 - 1:
-        raise ValueError(f"b = {b} exceeds the kernel's grid")
-    y = torch.empty((n, b), dtype=x.dtype, device=dev)
+    y = torch.empty((n, b), dtype=x.dtype, device=x.device)
     lib = _library()
     fn = (lib.krt_bsr_flat_f32 if x.dtype == torch.float32
           else lib.krt_bsr_flat_f64)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(ablocks.data_ptr(), cb.data_ptr(), row_ptr.data_ptr(),
-                  x.data_ptr(), y.data_ptr(), nrb, n, b, stream)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = fn(row_ptr.data_ptr(), cols.data_ptr(), val_off.data_ptr(),
+                  ablocks.data_ptr(), x.data_ptr(), y.data_ptr(), n, b,
+                  stream)
     cuda_build.raise_on(code, fn.__name__)
     launches_bsr += 1
     return y
@@ -241,9 +226,12 @@ class BsrOperator:
         dev = ablocks.device
         self.cb = torch.as_tensor(cb, device=dev)
         self.rb = torch.as_tensor(rb, device=dev)
-        self.row_ptr = torch.as_tensor(
-            np.searchsorted(rb, np.arange(self.n_pad // BLK + 1)).astype(
-                np.int32), device=dev)
+        # K4's row index, in the operator's node order: the entries are in
+        # CSR order, and each reads its value at block·128·128 + offset of
+        # the flattened blocks
+        self.row_ptr, self.cols, self.val_off = row_gather.row_index(
+            entry_rc, entry_block * (BLK * BLK) + entry_offset, n,
+            ablocks.numel(), dev)
 
     @property
     def shape(self):
@@ -325,7 +313,7 @@ class BsrOperator:
         if x.device.type != "cuda":
             raise ValueError(f"unsupported device {x.device}")
         squeeze = x.ndim == 1
-        y = bsr_spmm(self.ablocks, self.cb, self.row_ptr,
+        y = bsr_spmm(self.row_ptr, self.cols, self.val_off, self.ablocks,
                      self._prepare(x[:, None] if squeeze else x)).to(x.dtype)
         return y[:, 0] if squeeze else y
 

@@ -1,4 +1,4 @@
-"""Super-tile block-sparse SpMM operator with hand-written Hopper kernels.
+"""Super-tile SpMM operator with hand-written Hopper kernels.
 
 Port of ``krylov_robustness_tpu/ops/pallas_bsr_super.py``. The (RCM-permuted)
 matrix is packed into dense ``tile_r × tile_c`` super-tiles (default
@@ -9,11 +9,17 @@ equals the JAX package's.
 
 Two kernels in ``csrc/bsr_super.cu`` compute ``A @ x`` over that packing:
 
-* K1 (``tile_spmm_bf16``) replaces ``_kernel_bf16``: A stored in bf16
-  (bf16-exact 0/±1 adjacency), x split into ``terms`` bf16 parts on load,
-  bf16 tensor cores with f32 accumulation — modes ``bf16x2``/``bf16x3``.
-* K2 (``tile_spmm_full``) replaces ``_kernel_f32``: the same schedule in full
-  f32 or f64 with FFMA/DFMA — mode ``f32`` (f32 or f64 storage).
+* K1 (``tile_spmm_bf16``) replaces ``_kernel_bf16`` — modes
+  ``bf16x2``/``bf16x3``: A stored in bf16 (bf16-exact 0/±1 adjacency). It is
+  a row gather (``csrc/row_gather.cuh``) over a CSR row index of the packing
+  (``row_ptr``, ``cols`` and ``val_off``, each entry's offset in the
+  flattened tiles, built once by the operator): each entry's value is read
+  out of the tiles and each gathered f32 x value is split in registers into
+  ``terms`` bf16 parts, each part's products summed in f32 on their own. The
+  tiles stay the only copy of the values, and K1 computes no fill.
+* K2 (``tile_spmm_full``) replaces ``_kernel_f32`` — mode ``f32`` (f32 or f64
+  storage): dense tile products in full f32 or f64 with FFMA/DFMA, skipping
+  64 × 32 sub-blocks that the structural bitmap marks empty.
 
 Beside each kernel is its plain torch version (a batched tile product plus
 ``index_add_`` by super-row). :meth:`SuperBsrOperator.matmul` runs the plain
@@ -31,15 +37,15 @@ import scipy.sparse as sp
 import torch
 
 from ..utils.device import float_dtype, resolve_device
-from . import cuda_build
+from . import cuda_build, row_gather
 
 BLK = 128
 SUP = 4  # 128-row blocks per super-row (tile height 512)
 SLAB = 2  # 128-col blocks per x slab (tile width 256)
 TILE_R = SUP * BLK
 TILE_C = SLAB * BLK
-# sub-block of the kernels' structural bitmap: must equal the CTA row strip
-# (BM) and the reduction chunk (BK) compiled into csrc/bsr_super.cu
+# sub-block of K2's structural bitmap: must equal the CTA row strip (BM) and
+# the reduction chunk (BK) compiled into csrc/bsr_super.cu
 MASK_BM = 64
 MASK_BK = 32
 MODES = ("f32", "bf16x2", "bf16x3")
@@ -173,7 +179,7 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = cuda_build.library("bsr_super")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.krt_bsr_super_bf16.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+        lib.krt_bsr_super_bf16.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
         for name in ("krt_bsr_super_f32", "krt_bsr_super_f64"):
             getattr(lib, name).argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         for name in ("krt_bsr_super_bf16", "krt_bsr_super_f32",
@@ -184,6 +190,7 @@ def _library() -> ctypes.CDLL:
 
 
 def _check_launch_args(atiles, slab, sup_ptr, blkmask, x, store, compute):
+    """K2's checks of its arguments; returns (super-rows, tile_r, tile_c)."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the super-tile kernels run on CUDA tensors, got {dev}")
@@ -213,12 +220,14 @@ def _check_launch_args(atiles, slab, sup_ptr, blkmask, x, store, compute):
     return nsup, tile_r, tile_c
 
 
-def tile_spmm_bf16(atiles, slab, sup_ptr, blkmask, x, terms: int):
-    """K1: y (n, b) f32 = A @ x for bf16 tiles and f32 x (n, b), x split
+def tile_spmm_bf16(row_ptr, cols, val_off, atiles, x, terms: int):
+    """K1: y (n, b) f32 = A @ x for f32 x (n, b), A's values gathered out of
+    the bf16 tiles ``atiles`` through the int32 row index (``row_ptr`` of
+    n + 1, ``cols`` and ``val_off`` of nnz; see :mod:`.row_gather`), x split
     into ``terms`` bf16 parts inside the kernel."""
     global launches_bf16
-    nsup, tile_r, tile_c = _check_launch_args(
-        atiles, slab, sup_ptr, blkmask, x, torch.bfloat16, torch.float32)
+    row_gather.check_launch("K1", row_ptr, cols, val_off, atiles, x,
+                            torch.bfloat16, torch.float32)
     if terms not in (2, 3):
         raise ValueError(f"terms must be 2 or 3, got {terms}")
     n, b = x.shape
@@ -227,9 +236,9 @@ def tile_spmm_bf16(atiles, slab, sup_ptr, blkmask, x, terms: int):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.krt_bsr_super_bf16(
-            atiles.data_ptr(), slab.data_ptr(), sup_ptr.data_ptr(),
-            blkmask.data_ptr(), x.data_ptr(), y.data_ptr(), nsup, tile_r,
-            tile_c, n, b, terms, stream)
+            row_ptr.data_ptr(), cols.data_ptr(), val_off.data_ptr(),
+            atiles.data_ptr(), x.data_ptr(), y.data_ptr(), n, b, terms,
+            stream)
     cuda_build.raise_on(code, "krt_bsr_super_bf16")
     launches_bf16 += 1
     return y
@@ -336,8 +345,15 @@ class SuperBsrOperator:
         self._sup_ptr = torch.as_tensor(
             np.searchsorted(sup, np.arange(n_pad // tile_r + 1)).astype(
                 np.int32), device=dev)
-        # structural bitmap of (MASK_BM × MASK_BK) sub-blocks: frozen-structure
-        # edits only touch existing entries, so it never goes stale
+        # K1's row index, in the operator's node order: the entries are in
+        # CSR order, and each reads its value at tile·tile_r·tile_c + offset
+        # of the flattened tiles (shared by with_tiles' operators)
+        self._row_ptr, self._cols, self._val_off = row_gather.row_index(
+            entry_rc, entry_tile * (tile_r * tile_c) + entry_offset, n,
+            atiles.numel(), dev)
+        # K2's structural bitmap of (MASK_BM × MASK_BK) sub-blocks:
+        # frozen-structure edits only touch existing entries, so it never
+        # goes stale
         kblocks = tile_c // MASK_BK
         mask = np.zeros((ntile, (tile_r // MASK_BM) * kblocks), np.uint8)
         mask[entry_tile, (entry_offset // tile_c // MASK_BM) * kblocks
@@ -360,7 +376,8 @@ class SuperBsrOperator:
         return self.atiles.numel() * self.atiles.element_size()
 
     def with_tiles(self, atiles: torch.Tensor) -> "SuperBsrOperator":
-        """The same operator over replacement tile storage (no copy)."""
+        """The same operator over replacement tile storage (no copy); it
+        shares the packing and the row index."""
         if atiles.shape != self.atiles.shape or atiles.dtype != self.atiles.dtype:
             raise ValueError("replacement tiles must match shape and dtype")
         obj = object.__new__(type(self))
@@ -443,8 +460,8 @@ class SuperBsrOperator:
         squeeze = x.ndim == 1
         xc = self._prepare(x[:, None] if squeeze else x)
         if self._terms():
-            y = tile_spmm_bf16(self.atiles, self._slab, self._sup_ptr,
-                               self._blkmask, xc, self._terms())
+            y = tile_spmm_bf16(self._row_ptr, self._cols, self._val_off,
+                               self.atiles, xc, self._terms())
         else:
             y = tile_spmm_full(self.atiles, self._slab, self._sup_ptr,
                                self._blkmask, xc)

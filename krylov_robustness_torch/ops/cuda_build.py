@@ -2,7 +2,8 @@
 
 Each source under ``csrc/`` is compiled by ``nvcc`` for sm_90a into a shared
 library with a plain C interface (``build/kernels/``, keyed on a hash of the
-source and the flags) and loaded with ``ctypes``. A build happens at first
+source, every shared header ``csrc/*.cuh`` and the flags) and loaded with
+``ctypes``. A build happens at first
 use, never at import; :func:`build_kernels` starts one ``nvcc`` per missing
 library, all at once, and waits for them together.
 """
@@ -36,9 +37,15 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = SOURCES[name].read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return _BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    """The library path of one source, named by a hash of the source, the
+    shared headers it may include (every ``*.cuh`` beside it, so that a
+    changed header never reuses a stale library) and the flags."""
+    src = SOURCES[name]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return _BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build_kernels(names=tuple(SOURCES)) -> dict[str, tuple[Path, float]]:

@@ -5,7 +5,7 @@ Run from the root of a checkout (the graphs come from
 ``chip_smoke.py``)::
 
     python3 -m krylov_robustness_torch.tools.probe [solvers] [profile] \\
-        [budget] [--out DIR]
+        [budget] [gather] [--out DIR] [--variants NAME=VALUE[,...] ...]
 
 ``solvers``: the spectra solver of the f32 fused lane on the hub graph. One
 fused block (k = 10) with the Sturm bisection (``eigvalsh_banded``, the
@@ -23,12 +23,26 @@ per run, and writes each run's table, sorted by device time, to
 ``budget``: the same over the budget sweep's step at Q = 50 on the road
 graph (K3 in f32 and f64, COO per-step and fused), tables to
 ``DIR/budget_<run>.txt``.
+
+``gather``: K1 and K4 (the row gather of ``csrc/row_gather.cuh``) at the
+smoke's phase-3 shapes, built into ``DIR/gather/<variant>/`` from the
+checkout's sources with the header's constants as they are and as each
+``--variants`` entry sets them (``UNROLL=8``, ``ROWS_PER_WARP=8,WARPS=2``),
+each held against the plain version and timed with CUDA events in turns
+(every variant, then again in reverse order; the better time counts) beside
+cuSPARSE. Then K1 on the hub graph with its values read from a compact copy
+in CSR order (``val_off[e] = e``) in place of the tiles: what the scattered
+value gather costs.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
+import re
+import shutil
 import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -187,14 +201,151 @@ def probe_budget(smoke, dev, out: Path) -> None:
         print("\n".join(table.splitlines()[:14]))
 
 
+GATHER_VARIANTS = ("UNROLL=2", "UNROLL=8", "ROWS_PER_WARP=1",
+                   "ROWS_PER_WARP=8", "WARPS=1", "WARPS=2", "WARPS=8")
+
+
+def _gather_libs(out: Path, variants) -> dict:
+    """name → (K1 library, K4 library), built from the checkout's sources
+    with the row-gather constants of each variant, one nvcc per source, all
+    started together."""
+    from ..ops import cuda_build
+
+    csrc = cuda_build.SOURCES["bsr_super"].parent
+    builds = []
+    for name in ("as-is", *variants):
+        d = out / "gather" / name.replace("=", "").replace(",", "_")
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        header = (csrc / "row_gather.cuh").read_text()
+        for setting in () if name == "as-is" else name.split(","):
+            key, value = setting.split("=")
+            header, hits = re.subn(rf"constexpr int {key} = \d+;",
+                                   f"constexpr int {key} = {int(value)};",
+                                   header)
+            if hits != 1:
+                raise ValueError(f"row_gather.cuh has no constant {key}")
+        (d / "row_gather.cuh").write_text(header)
+        for src in ("bsr_super", "bsr_flat"):
+            shutil.copy(csrc / f"{src}.cu", d)
+            builds.append((name, src, d / f"lib{src}.so", subprocess.Popen(
+                [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+                 str(d / f"lib{src}.so"), str(d / f"{src}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {}
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name, src, lib, proc in builds:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name} {src}:\n{log}")
+        dll = ctypes.CDLL(str(lib))
+        fns = ((dll.krt_bsr_super_bf16,) if src == "bsr_super" else
+               (dll.krt_bsr_flat_f32, dll.krt_bsr_flat_f64))
+        for fn in fns:
+            fn.argtypes = [ptr] * 6 + [i32] * (3 if src == "bsr_super"
+                                               else 2) + [ptr]
+            fn.restype = i32
+        libs.setdefault(name, {})[src] = dll
+    return libs
+
+
+def probe_gather(smoke, dev, out: Path, variants) -> None:
+    import scipy.sparse as sp
+
+    from ..ops.banded_spmm import rcm_permutation
+    from ..ops.bsr import BsrOperator
+    from ..ops.bsr_super import SuperBsrOperator
+
+    libs = _gather_libs(out, variants)
+
+    def rcm(A):
+        p = rcm_permutation(A)
+        return sp.csr_matrix(A, dtype=np.float64)[p, :].tocsc()[:, p].tocsr()
+
+    road, hub = rcm(road_graph()), rcm(hub_graph())
+    f32, f64 = torch.float32, torch.float64
+    ops = {("road", "bf16x2"): SuperBsrOperator(road, dtype=f32, device=dev,
+                                                mode="bf16x2"),
+           ("road", "bf16x3"): SuperBsrOperator(road, dtype=f32, device=dev,
+                                                mode="bf16x3"),
+           ("hub", "bf16x2"): SuperBsrOperator(hub, dtype=f32, device=dev,
+                                               mode="bf16x2"),
+           ("road", "f32"): BsrOperator(road, dtype=f32, device=dev),
+           ("road", "f64"): BsrOperator(road, dtype=f64, device=dev)}
+
+    def launch(name, op, x, compact=None):
+        y = torch.empty_like(x)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if isinstance(op, SuperBsrOperator):
+            val_off, vals = compact or (op._val_off, op.atiles)
+            code = libs[name]["bsr_super"].krt_bsr_super_bf16(
+                op._row_ptr.data_ptr(), op._cols.data_ptr(),
+                val_off.data_ptr(), vals.data_ptr(), x.data_ptr(),
+                y.data_ptr(), op.n, x.shape[1], op._terms(), stream)
+        else:
+            lib = libs[name]["bsr_flat"]
+            fn = lib.krt_bsr_flat_f32 if x.dtype == f32 else \
+                lib.krt_bsr_flat_f64
+            code = fn(op.row_ptr.data_ptr(), op.cols.data_ptr(),
+                      op.val_off.data_ptr(), op.ablocks.data_ptr(),
+                      x.data_ptr(), y.data_ptr(), op.n, x.shape[1], stream)
+        if code != 0:
+            raise RuntimeError(f"{name}: launch failed with CUDA error {code}")
+        return y
+
+    rng = np.random.default_rng(1)
+    for (graph, label), widths in (
+            (("hub", "bf16x2"), (500, 520)), (("road", "bf16x2"), (512, 500)),
+            (("road", "bf16x3"), (512,)), (("road", "f32"), (1, 100, 500, 512)),
+            (("road", "f64"), (512,))):
+        op = ops[graph, label]
+        A = road if graph == "road" else hub
+        for b in widths:
+            x = torch.as_tensor(rng.standard_normal((op.n, b)), device=dev,
+                                dtype=f64 if label == "f64" else f32)
+            yp = op.matmul_plain(x)
+            scale = float(yp.abs().max())
+            for name in libs:
+                err = float((launch(name, op, x) - yp).abs().max()) / scale
+                smoke.check(err <= smoke.GATES[label],
+                            f"gather {name} {graph} {label} b={b}: {err:.3e}")
+            times = {name: [] for name in libs}
+            for order in (list(libs), list(libs)[::-1]):
+                for name in order:
+                    times[name].append(smoke.cuda_ms(
+                        lambda: launch(name, op, x), reps=15))
+            lib_ms = smoke.library_ms(A, x)
+            print(f"[gather] {graph} {label} b={b}: cusparse {lib_ms:.4f} ms; "
+                  + "; ".join(f"{name} {min(t):.4f} ms" for name, t in
+                              times.items()))
+    op = ops["hub", "bf16x2"]
+    x = torch.as_tensor(rng.standard_normal((op.n, 500)), device=dev,
+                        dtype=f32)
+    compact = (torch.arange(op.nnz, dtype=torch.int32, device=dev),
+               op.atiles.reshape(-1)[op._val_off.long()].contiguous())
+    smoke.check(torch.equal(launch("as-is", op, x, compact),
+                            launch("as-is", op, x)),
+                "gather: the compact values give another product")
+    t = {}
+    for kind in ("tiles", "compact", "compact", "tiles"):
+        ms = smoke.cuda_ms(lambda: launch(
+            "as-is", op, x, compact if kind == "compact" else None), reps=15)
+        t[kind] = min(t.get(kind, ms), ms)
+    print(f"[gather] hub bf16x2 b=500, values read from the tiles "
+          f"{t['tiles']:.4f} ms, from a compact copy in CSR order "
+          f"{t['compact']:.4f} ms")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probes", nargs="*",
-                    choices=["solvers", "profile", "budget"],
-                    help="default: all three")
+                    choices=["solvers", "profile", "budget", "gather"],
+                    help="default: all four")
     ap.add_argument("--out", type=Path, default=Path("build/probe"))
+    ap.add_argument("--variants", nargs="*", default=GATHER_VARIANTS,
+                    help="row-gather constants for the gather probe")
     args = ap.parse_args(argv)
-    args.probes = args.probes or ["solvers", "profile", "budget"]
+    args.probes = args.probes or ["solvers", "profile", "budget", "gather"]
     if not torch.cuda.is_available():
         print("probe: CUDA is not available", file=sys.stderr)
         return 2
@@ -209,6 +360,8 @@ def main(argv=None) -> int:
         probe_profile(smoke, dev, args.out)
     if "budget" in args.probes:
         probe_budget(smoke, dev, args.out)
+    if "gather" in args.probes:
+        probe_gather(smoke, dev, args.out, args.variants)
     return 0
 
 

@@ -182,12 +182,57 @@ def test_interop_bsr_from_jax_packing():
                         jop.n, torch.float64, "cpu")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("graph", ["banded", "random", "make_slots"])
+def test_row_index_reads_the_packed_matrix(graph, dtype):
+    """K4's row index over the flattened blocks is the packed matrix in CSR
+    form, explicit zeros included, and stays so after ``set_edge``; every
+    offset lies inside the blocks."""
+    if graph == "random":
+        A = random_graph(400, 0.05, seed=4)
+    else:
+        A = banded_graph(n=260, max_off=30, extra=40)  # a padding row block
+    if graph == "make_slots":  # explicit-zero candidate slots
+        C = sp.coo_matrix(A)
+        r, c = np.array([0, 5, 17]), np.array([200, 150, 90])
+        assert not np.asarray(A[r, c]).any()
+        A = sp.coo_matrix(
+            (np.concatenate([C.data, np.zeros(6)]),
+             (np.concatenate([C.row, r, c]), np.concatenate([C.col, c, r]))),
+            shape=A.shape)
+    A = sp.csr_matrix(A).astype(np.float64)
+    A.sort_indices()
+    op = BsrOperator(A, dtype=dtype, device="cpu")
+    row_ptr, cols, val_off = (t.numpy() for t in (op.row_ptr, op.cols,
+                                                  op.val_off))
+    assert all(t.dtype == torch.int32 for t in (op.row_ptr, op.cols,
+                                                op.val_off))
+    assert val_off.min() >= 0 and val_off.max() < op.ablocks.numel()
+
+    def assert_reads(want):
+        flat = op.ablocks.reshape(-1).double().numpy()
+        got = sp.csr_matrix((flat[val_off], cols, row_ptr), shape=A.shape)
+        np.testing.assert_array_equal(got.indptr, want.indptr)
+        np.testing.assert_array_equal(got.indices, want.indices)
+        np.testing.assert_array_equal(got.data, want.data.astype(
+            np.float32 if dtype == torch.float32 else np.float64))
+
+    assert_reads(A)
+    C = sp.coo_matrix(sp.tril(A, -1))
+    i, j = int(C.row[2]), int(C.col[2])
+    op.set_edge(i, j, 0.0)
+    A2 = A.copy()
+    A2[i, j] = A2[j, i] = 0.0  # explicit zeros: the structure is frozen
+    assert_reads(A2)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     """K4 takes CUDA tensors only: a CPU call raises, it never falls back."""
     A = banded_graph(n=300, max_off=30, extra=60, weighted=False)
     op = BsrOperator(A, dtype=torch.float32, device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
-        bsr.bsr_spmm(op.ablocks, op.cb, op.row_ptr, torch.zeros((300, 4)))
+        bsr.bsr_spmm(op.row_ptr, op.cols, op.val_off, op.ablocks,
+                     torch.zeros((300, 4)))
 
 
 def test_non_cpu_tensor_never_takes_the_plain_path(monkeypatch):

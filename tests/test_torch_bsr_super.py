@@ -11,6 +11,7 @@ import torch
 
 import jax.numpy as jnp
 
+from helpers import random_graph
 from krylov_robustness_torch.ops import bsr_super, cuda_build
 from krylov_robustness_torch.ops.bsr_super import (
     SuperBsrOperator,
@@ -144,8 +145,8 @@ def test_wide_batch_chunking(monkeypatch):
 
 
 def test_structural_bitmap_covers_every_entry():
-    """The kernels skip sub-blocks the bitmap marks empty: every stored
-    entry (explicit zeros included) must lie in a marked sub-block."""
+    """K2 skips sub-blocks the bitmap marks empty: every stored entry
+    (explicit zeros included) must lie in a marked sub-block."""
     A = sp.csr_matrix(banded_graph(n=1200, max_off=90, extra=200))
     op = SuperBsrOperator(A, dtype=torch.float64, device="cpu", mode="f32")
     mask = op._blkmask.numpy()
@@ -168,8 +169,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     op = SuperBsrOperator(A, dtype=torch.float32, device="cpu", mode="bf16x2")
     x = torch.zeros((300, 4))
     with pytest.raises(ValueError, match="CUDA"):
-        bsr_super.tile_spmm_bf16(op.atiles, op._slab, op._sup_ptr,
-                                 op._blkmask, x, 2)
+        bsr_super.tile_spmm_bf16(op._row_ptr, op._cols, op._val_off,
+                                 op.atiles, x, 2)
     op32 = SuperBsrOperator(A, dtype=torch.float32, device="cpu", mode="f32")
     with pytest.raises(ValueError, match="CUDA"):
         bsr_super.tile_spmm_full(op32.atiles, op32._slab, op32._sup_ptr,
@@ -186,6 +187,82 @@ def test_non_cpu_tensor_never_takes_the_plain_path(monkeypatch):
     with pytest.raises(ValueError):
         op.matmul(torch.zeros((300, 4), device="meta"))
     assert not called
+
+
+@pytest.mark.parametrize("graph", ["banded", "random", "make_slots"])
+def test_row_index_reads_the_packed_matrix(graph):
+    """K1's row index over the flattened tiles is the packed matrix in CSR
+    form, explicit zeros included, and stays so after ``set_edge`` and over
+    ``with_tiles``' replacement storage; every offset lies inside the
+    tiles."""
+    A = sp.csr_matrix(_index_graph(graph))
+    A.sort_indices()
+    op = SuperBsrOperator(A, dtype=torch.float32, device="cpu", mode="bf16x2")
+    row_ptr, cols, val_off = (t.numpy() for t in (op._row_ptr, op._cols,
+                                                  op._val_off))
+    assert all(t.dtype == torch.int32 for t in (op._row_ptr, op._cols,
+                                                op._val_off))
+    assert val_off.min() >= 0 and val_off.max() < op.atiles.numel()
+
+    def indexed(tiles):
+        flat = tiles.reshape(-1).float().numpy()
+        return sp.csr_matrix((flat[val_off], cols, row_ptr), shape=A.shape)
+
+    _assert_same_csr(indexed(op.atiles), A)
+    C = sp.coo_matrix(sp.tril(A, -1))
+    i, j = int(C.row[3]), int(C.col[3])
+    op.set_edge(i, j, 0.0)
+    A2 = A.copy()
+    A2[i, j] = A2[j, i] = 0.0  # explicit zeros: the structure is frozen
+    _assert_same_csr(indexed(op.atiles), A2)
+    other = op.with_tiles(2 * op.atiles)
+    assert other._val_off is op._val_off and other._row_ptr is op._row_ptr
+    _assert_same_csr(indexed(other.atiles), 2 * A2)
+
+
+def _index_graph(kind):
+    """A banded graph, a random graph, or a banded graph with make mode's
+    explicit-zero candidate slots (both triangles)."""
+    if kind == "random":
+        return random_graph(300, 0.03, seed=7)
+    A = banded_graph(n=700, max_off=50, extra=120, weighted=False)
+    if kind == "banded":
+        return A
+    C = sp.coo_matrix(A)
+    rng = np.random.default_rng(8)
+    r, c = rng.integers(0, 700, 40), rng.integers(0, 700, 40)
+    keep = (r != c) & (np.asarray(A[r, c]).ravel() == 0)
+    r, c = r[keep], c[keep]
+    return sp.coo_matrix(
+        (np.concatenate([C.data, np.zeros(2 * len(r))]),
+         (np.concatenate([C.row, r, c]), np.concatenate([C.col, c, r]))),
+        shape=A.shape).tocsr()
+
+
+def _assert_same_csr(got, want):
+    """Equal structure (explicit zeros count) and equal values."""
+    want = sp.csr_matrix(want)
+    want.sort_indices()
+    np.testing.assert_array_equal(got.indptr, want.indptr)
+    np.testing.assert_array_equal(got.indices, want.indices)
+    np.testing.assert_array_equal(got.data, want.data)
+
+
+def test_build_key_covers_the_shared_headers(monkeypatch, tmp_path):
+    """A library is named by its source and every ``csrc/*.cuh`` beside it:
+    a changed header gives another name, so no stale library is reused."""
+    for path in cuda_build.SOURCES["bsr_super"].parent.glob("*.cu*"):
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setitem(cuda_build.SOURCES, "bsr_super",
+                        tmp_path / "bsr_super.cu")
+    header = tmp_path / "row_gather.cuh"
+    before = cuda_build._target("bsr_super")
+    assert cuda_build._target("bsr_super") == before
+    header.write_text(header.read_text() + "\n// changed\n")
+    changed = cuda_build._target("bsr_super")
+    assert changed != before
+    (tmp_path / "extra.cuh").write_text("#pragma once\n")
+    assert cuda_build._target("bsr_super") != changed
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

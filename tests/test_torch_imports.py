@@ -29,6 +29,7 @@ def test_every_module_imports_without_jax():
             "krylov_robustness_torch.ops.bsr_super",
             "krylov_robustness_torch.ops.banded_spmm",
             "krylov_robustness_torch.ops.cuda_build",
+            "krylov_robustness_torch.ops.row_gather",
             "krylov_robustness_torch.experiments.__main__",
             "krylov_robustness_torch.experiments.unweighted",
             "krylov_robustness_torch.baselines.miobi",
