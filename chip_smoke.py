@@ -9,22 +9,22 @@ Phases, each of which raises on failure (exit code 1):
 
 1. device: the card's name and power limit, torch/CUDA versions, TF32 off;
 2. build: compile the kernels K1/K2 (``csrc/bsr_super.cu``), K3
-   (``csrc/banded_ell.cu``) and K4 (``csrc/bsr_flat.cu``; K1 and K4 share the
-   row gather of ``csrc/row_gather.cuh``) with nvcc, one process per source,
-   in parallel;
+   (``csrc/banded_ell.cu``) and K4 (``csrc/bsr_flat.cu``; all four share the
+   row gather of ``csrc/row_gather.cuh``, K3 from b = 32 on) with nvcc, one
+   process per source, in parallel;
 3. kernels: each kernel against its plain torch version and scipy, with
    CUDA-event times beside the plain version's, the COO SpMM's and one
    cuSPARSE call's (``torch.sparse.mm`` on a CSR tensor, the yardstick the
    port never calls) and the kernel's time over it, and its bound (the
    larger of the product's bytes — A as CSR, x read once, y written once —
    at the HBM rate and 2·nnz·b at its unit's peak) beside its design time
-   (its stored tables in place of CSR), on a road network at Vermont's scale
-   and a hub graph at ca-AstroPh's scale (both RCM-permuted), at b = 512 and
-   at the main paths' widths (K1 also at b = 250, K3 at b = 1, 100, 512 in
-   f32 and 100 in f64, K4 at b = 1, 100, 250, 500, 512 in f32 and 512 in
-   f64, on the road graph); the
-   hub graph's flat blocks exceed their budget, so ``make_bsr_operator``
-   falls back to COO there;
+   (its stored tables in place of CSR) and the bytes its row gathers read
+   and their rate, on a road network at Vermont's scale and a hub graph at
+   ca-AstroPh's scale (both RCM-permuted), at b = 512 and at the main paths'
+   widths (K1 also at b = 250, K3 at b = 1, 100, 512 in f32 and 100 in f64,
+   K4 at b = 1, 100, 250, 500, 512 in f32 and 512 in f64, on the road
+   graph); the hub graph's flat blocks exceed their budget, so
+   ``make_bsr_operator`` falls back to COO there;
 4. greedy path, road graph: ``greedy_krylov`` break/make on the per-step
    lane through K1 (f32) and K2 (f64), picks held against the COO backend;
 5. greedy path, hub graph: the fused lane with σ-shift, picks held against
@@ -40,8 +40,8 @@ Phases, each of which raises on failure (exit code 1):
    the hub graph), its JSON line printed as it is;
 9. replay: copies of the inputs of the last launch of each kernel at each
    shape of phases 4-8 (outside the bench's timed lanes), rerun through the
-   kernel and its plain version (for K1 and K4 over the tiles or blocks that
-   their row index implies).
+   kernel and its plain version (for K1, K2 and K4 over the tiles or blocks
+   that their row index implies, for K3 over its ELL tables).
 
 Each path (4-5, 6, 7, 8) runs with every launch count set to 0 just before
 it and read just after. The line before the last is a JSON object with one
@@ -174,17 +174,21 @@ def hold(op, A, xh, dtype, dev, label: str, where: str):
                f"kernel-plain {diff / scale:.3e} (gate {gate:.0e})"), diff
 
 
-def hold_set_edge(op, Ap, x64, dev, label: str, where: str) -> None:
-    """A frozen-structure edit on the card, then a product held as in
-    :func:`hold` against scipy on the edited matrix."""
+def hold_set_edge(op, Ap, x64, dev, label: str, where: str,
+                  widths=(8,)) -> None:
+    """A frozen-structure edit on the card, then a product at each of
+    ``widths`` held as in :func:`hold` against scipy on the edited
+    matrix."""
     C = sp.coo_matrix(sp.tril(Ap, -1))
     i, j = int(C.row[7]), int(C.col[7])
     op.set_edge(i, j, 0.0)
     A2 = Ap.tolil()
     A2[i, j] = A2[j, i] = 0.0
-    _, errs, _ = hold(op, sp.csr_matrix(A2), x64[:, :8], torch.float32, dev,
-                      label, f"{where} after set_edge")
-    print(f"[kernels] {where} set_edge({i},{j}) then product: {errs}")
+    for b in widths:
+        _, errs, _ = hold(op, sp.csr_matrix(A2), x64[:, :b], torch.float32,
+                          dev, label, f"{where} after set_edge b={b}")
+        print(f"[kernels] {where} set_edge({i},{j}) then product b={b}: "
+              f"{errs}")
 
 
 def library_ms(Ap, x) -> float:
@@ -232,6 +236,13 @@ def case_text(st: dict) -> str:
             f"{st['design_ms']:.4f} ms")
 
 
+def gathers(rows: int, b: int, size: int, ms: float) -> str:
+    """The x row slices a kernel gathers (``rows`` of them, b values of
+    ``size`` bytes each, one a stored entry) and their rate in ``ms``."""
+    nbytes = rows * b * size
+    return f"gathers {nbytes / 1e6:.1f} MB at {nbytes / ms / 1e9:.3f} TB/s"
+
+
 def phase_kernels(dev, graphs) -> dict:
     from krylov_robustness_torch.ops.banded_spmm import rcm_permutation
     from krylov_robustness_torch.ops.bsr_super import SuperBsrOperator
@@ -260,7 +271,9 @@ def phase_kernels(dev, graphs) -> dict:
                                      f"{name} {label} b={b}")
                 st = timed_case(op, Ap, x, unit, diff)
                 print(f"[kernels] {name} {label}: n={n} nnz={nnz} b={b} "
-                      f"tiles={op.ntiles} kernel {st['ms']:.4f} ms "
+                      f"tiles={op.ntiles} ("
+                      f"{gathers(nnz, b, x.element_size(), st['ms'])}) "
+                      f"kernel {st['ms']:.4f} ms "
                       f"({nnz * b / (st['ms'] * 1e-3) / 1e9:.2f} Gnnz·b/s) "
                       f"plain {st['plain_ms']:.4f} ms {case_text(st)}; "
                       f"{errs}")
@@ -268,6 +281,8 @@ def phase_kernels(dev, graphs) -> dict:
                 del x
             if (name, label) == ("road", "bf16x3"):
                 hold_set_edge(op, Ap, x64, dev, label, "K1")
+            if (name, label) == ("road", "f32"):
+                hold_set_edge(op, Ap, x64, dev, label, "K2", (8, 512))
             del op
             torch.cuda.empty_cache()
     return stats
@@ -289,7 +304,8 @@ def phase_road_kernel(dev, A, kernel: str, make_op, cases, describe) -> dict:
     """One kernel (K3, K4) on the RCM-permuted road graph against its plain
     version and scipy at each (dtype, label, b) of ``cases``, with
     CUDA-event times of the kernel, the plain version, the COO SpMM and the
-    yardstick, and its bound; then a frozen-structure edit and a product.
+    yardstick, and its bound; then a frozen-structure edit and products at
+    b = 8 and 100 (for K3 its two paths).
     ``make_op(Ap, dtype)`` builds the operator; ``describe(op, n, nnz, b,
     ms)`` gives the kernel's own figures for its line."""
     from krylov_robustness_torch.ops.banded_spmm import rcm_permutation
@@ -317,7 +333,7 @@ def phase_road_kernel(dev, A, kernel: str, make_op, cases, describe) -> dict:
               f"{st['plain_ms']:.4f} ms coo {coo_ms:.4f} ms {case_text(st)}; "
               f"{errs}")
         stats["road", f"{kernel} {label}", b] = st
-    hold_set_edge(ops["f32"][0], Ap, x64, dev, "f32", kernel)
+    hold_set_edge(ops["f32"][0], Ap, x64, dev, "f32", kernel, (8, 100))
     del ops
     torch.cuda.empty_cache()
     return stats
@@ -326,6 +342,7 @@ def phase_road_kernel(dev, A, kernel: str, make_op, cases, describe) -> dict:
 def phase_road_kernels(dev, A) -> dict:
     """K3 and K4 through :func:`phase_road_kernel`."""
     from krylov_robustness_torch.ops.banded_spmm import (
+        GATHER_MIN_B,
         BandedEllOperator,
         num_windows,
         rcm_bandwidth,
@@ -336,14 +353,17 @@ def phase_road_kernels(dev, A) -> dict:
     bw = rcm_bandwidth(A, rcm_permutation(A))
 
     def banded(op, n, nnz, b, ms):
-        return f"K={op.K} bw={bw} windows={num_windows(bw)}"
+        # the row gather reads one x row slice per stored entry, the ELL
+        # kernel one per slot, padding included
+        path, rows = (("row gather", nnz) if b >= GATHER_MIN_B
+                      else ("one thread per output over the ELL", op.K * n))
+        return (f"K={op.K} bw={bw} windows={num_windows(bw)} ({path}, "
+                f"{gathers(rows, b, op.vals.element_size(), ms)})")
 
     def flat(op, n, nnz, b, ms):
-        # the row gather reads one x row slice per entry
-        gathered = nnz * b * op.ablocks.element_size()
         return (f"blocks={op.nblocks} ({op.storage_bytes() / 1e6:.1f} MB, "
-                f"fill {nnz / (op.nblocks * BLK * BLK):.4%}, gathers "
-                f"{gathered / 1e6:.1f} MB at {gathered / ms / 1e9:.3f} TB/s)")
+                f"fill {nnz / (op.nblocks * BLK * BLK):.4%}, "
+                f"{gathers(nnz, b, op.ablocks.element_size(), ms)})")
 
     stats = phase_road_kernel(
         dev, A, "K3", lambda Ap, dt: BandedEllOperator(Ap, dtype=dt,
@@ -386,8 +406,9 @@ class MainPathCapture:
     kernel at each (tiles, n, b, mode) the main path gives it, so that
     ``replay`` can hold every such shape, on the inputs it was launched on,
     against the plain version. The last launch carries the deepest Lanczos
-    block, the densest x of the run. K1's and K4's row index is frozen (edits
-    change values only), so it is copied once per shape. Inside
+    block, the densest x of the run. The kernels' row index (and K3's ELL
+    columns) is frozen (edits change values only), so it is copied once per
+    shape. Inside
     :meth:`pause` (the bench's timed lanes) it keeps nothing, so that it adds
     no device work to what is timed. The wrappers keep their own launch
     counts; this adds none."""
@@ -431,17 +452,18 @@ class MainPathCapture:
                        (row_ptr, cols, val_off, atiles, x), frozen=3)
             return self.k1(row_ptr, cols, val_off, atiles, x, terms)
 
-        def k2(atiles, slab, sup_ptr, blkmask, x):
+        def k2(row_ptr, cols, val_off, atiles, x):
             label = "f32" if x.dtype == torch.float32 else "f64"
             self._keep(("K2", label, atiles.shape[0], *x.shape),
-                       (atiles, slab, sup_ptr, blkmask, x))
-            return self.k2(atiles, slab, sup_ptr, blkmask, x)
+                       (row_ptr, cols, val_off, atiles, x), frozen=3)
+            return self.k2(row_ptr, cols, val_off, atiles, x)
 
-        def k3(cols, vals, x):
+        def k3(cols, vals, row_ptr, entry_cols, val_off, x):
             label = "f32" if x.dtype == torch.float32 else "f64"
             self._keep(("K3", label, cols.shape[0], *x.shape),
-                       (cols, vals, x))
-            return self.k3(cols, vals, x)
+                       (row_ptr, entry_cols, val_off, cols, vals, x),
+                       frozen=4)
+            return self.k3(cols, vals, row_ptr, entry_cols, val_off, x)
 
         def k4(row_ptr, cols, val_off, ablocks, x):
             label = "f32" if x.dtype == torch.float32 else "f64"
@@ -466,8 +488,8 @@ class MainPathCapture:
         for key, (_, args) in self.kept.items():
             kernel, label, size, n, b = key
             if kernel == "K3":
-                cols, vals, x = args
-                yk = self.k3(cols, vals, x)
+                row_ptr, entry_cols, val_off, cols, vals, x = args
+                yk = self.k3(cols, vals, row_ptr, entry_cols, val_off, x)
                 yp = self.ell.ell_spmm_plain(cols.long(), vals, x)
                 where = f"{kernel} {label} K={size} n={n} b={b}"
             elif kernel == "K4":
@@ -480,24 +502,20 @@ class MainPathCapture:
                 yk = self.k4(row_ptr, cols, val_off, ablocks, x)
                 yp = self.flat.bsr_spmm_plain(ablocks, cb, rb, x_pad)[:n]
                 where = f"{kernel} {label} blocks={size} n={n} b={b}"
-            elif kernel == "K1":
+            else:
                 row_ptr, cols, val_off, atiles, x = args
                 _, tile_r, tile_c = atiles.shape
+                n_pad = self.mod._n_pad(n, tile_r, tile_c)
                 sup, slab = self._owners(row_ptr, cols, val_off, atiles.shape)
-                terms = int(label[-1])
-                yk = self.k1(row_ptr, cols, val_off, atiles, x, terms)
-                yp = self.mod.tile_spmm_bf16_plain(
-                    atiles, slab, sup, x, self.mod._n_pad(n, tile_r, tile_c),
-                    terms)
-                where = f"{kernel} {label} tiles={size} n={n} b={b}"
-            else:
-                atiles, slab, sup_ptr, blkmask, x = args
-                nsup, tile_r = sup_ptr.numel() - 1, atiles.shape[1]
-                sup = torch.repeat_interleave(
-                    torch.arange(nsup, device=x.device), torch.diff(sup_ptr))
-                yk = self.k2(atiles, slab, sup_ptr, blkmask, x)
-                yp = self.mod.tile_spmm_full_plain(atiles, slab, sup, x,
-                                                   nsup * tile_r)
+                if kernel == "K1":
+                    terms = int(label[-1])
+                    yk = self.k1(row_ptr, cols, val_off, atiles, x, terms)
+                    yp = self.mod.tile_spmm_bf16_plain(atiles, slab, sup, x,
+                                                       n_pad, terms)
+                else:
+                    yk = self.k2(row_ptr, cols, val_off, atiles, x)
+                    yp = self.mod.tile_spmm_full_plain(atiles, slab, sup, x,
+                                                       n_pad)
                 where = f"{kernel} {label} tiles={size} n={n} b={b}"
             worst[kernel] = max(worst.get(kernel, 0.0),
                                 self._check(where, label, x, yk, yp))

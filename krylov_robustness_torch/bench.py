@@ -170,38 +170,29 @@ def card() -> str:
 
 
 # -- SpMM lanes --------------------------------------------------------------
-# the tensors each operator's SpMM reads besides x, its values first. K1 and
-# K4 read nnz values out of their tile or block storage through val_off; K2
-# (a super-tile operator in mode 'f32') reads its tiles whole.
+# the tensors each operator's SpMM reads besides x, its values first. COO
+# reads its nnz values whole; the row gathers (K1–K4; K3 for b ≥ 32) read nnz
+# values out of their tile, ELL or block storage through val_off.
 _TABLES = {"CooMatrix": ("vals", "rows", "cols"),
-           "BandedEllOperator": ("vals", "cols"),
+           "BandedEllOperator": ("vals", "_row_ptr", "_cols", "_val_off"),
            "BsrOperator": ("ablocks", "row_ptr", "cols", "val_off"),
            "SuperBsrOperator": ("atiles", "_row_ptr", "_cols", "_val_off")}
-_K2_TABLES = ("atiles", "_slab", "_sup_ptr", "_blkmask")
-
-
-def _tables(op) -> tuple:
-    kind = type(op).__name__
-    return _K2_TABLES if kind == "SuperBsrOperator" and op.mode == "f32" \
-        else _TABLES[kind]
 
 
 def table_bytes(op) -> int:
     """Bytes of the stored tables an operator's SpMM reads: its index
-    tensors whole, and its values whole or, for K1 and K4, the nnz values
-    they gather."""
-    names = _tables(op)
+    tensors whole, and the nnz values it reads."""
+    names = _TABLES[type(op).__name__]
     values, *index = (getattr(op, name) for name in names)
-    count = op.nnz if names[-1].endswith("val_off") else values.numel()
-    nbytes = count * values.element_size()
-    return nbytes + sum(t.numel() * t.element_size() for t in index)
+    return op.nnz * values.element_size() + sum(
+        t.numel() * t.element_size() for t in index)
 
 
 def function_bytes(op, n: int, nnz: int, b: int, x_size: int) -> int:
     """Bytes y = A·x must move however A is stored: A as CSR with ``op``'s
     value type (a value and an int32 column index a nonzero, n + 1 int32
     row pointers), x read once and y written once."""
-    value_size = getattr(op, _tables(op)[0]).element_size()
+    value_size = getattr(op, _TABLES[type(op).__name__][0]).element_size()
     return nnz * (value_size + 4) + (n + 1) * 4 + 2 * n * b * x_size
 
 

@@ -1,10 +1,11 @@
 // Row-gather SpMM over a CSR row index into dense value storage, for Hopper
-// (sm_90a). Shared by K1 (csrc/bsr_super.cu) and K4 (csrc/bsr_flat.cu).
+// (sm_90a). Shared by K1 and K2 (csrc/bsr_super.cu), K3 for b >= 32
+// (csrc/banded_ell.cu) and K4 (csrc/bsr_flat.cu).
 //
 // What it computes. Row r owns the entries e = row_ptr[r] .. row_ptr[r+1] in
 // CSR order; entry e has column cols[e] and the value vals[val_off[e]], where
-// val_off is an int32 offset into the operator's own dense tile or block
-// storage, flattened. That storage stays the only copy of the values, so a
+// val_off is an int32 offset into the operator's own dense tile, block or
+// ELL storage, flattened. That storage stays the only copy of the values, so a
 // value edit in place, a replaced storage tensor over the same packing or an
 // explicit-zero slot needs no change here. With x and y row-major (n, b),
 //   y[r, c] = sum over e of vals[val_off[e]] * x[cols[e], c],

@@ -9,13 +9,19 @@ row r in sorted CSR order, padding slots hold ``val = 0`` and ``col = r``.
 So its entries are addressed exactly as the JAX operator addresses them
 (``_entry_pos = (ks, rows)`` in CSR order).
 
-K3 (``csrc/banded_ell.cu``) computes ``y = A @ x`` as a direct row-gather
-over that ELL and replaces ``_banded_kernel``. The JAX kernel's 128-lane
-windows (``rel``/``win`` tables, halo-padded xᵀ) exist only because Mosaic's
-gather cannot cross a vector register, and are not carried over. Beside the
-kernel is its plain torch version (a loop over slots of ``vals[k] ·
-x[cols[k]]``, summed in slot order); :meth:`BandedEllOperator.matmul` runs it
-for CPU tensors only, and a CUDA tensor launches the kernel or raises.
+K3 (``csrc/banded_ell.cu``) computes ``y = A @ x`` over that ELL and
+replaces ``_banded_kernel``. From b = :data:`GATHER_MIN_B` on it is the row
+gather of K1, K2 and K4 (``csrc/row_gather.cuh``) over a CSR row index of
+the ELL (``row_ptr``, ``cols`` and ``val_off`` = k·n + r, each entry's slot
+in the flattened ``vals``, built once by the operator): padding slots are
+never read, and each entry's column and value are read once for all b
+columns. Narrower x runs one thread per output over the K slots. The JAX
+kernel's 128-lane windows (``rel``/``win`` tables, halo-padded xᵀ) exist
+only because Mosaic's gather cannot cross a vector register, and are not
+carried over. Beside the kernel is its plain torch version (a loop over
+slots of ``vals[k] · x[cols[k]]``, summed in slot order);
+:meth:`BandedEllOperator.matmul` runs it for CPU tensors only, and a CUDA
+tensor launches the kernel or raises.
 
 The RCM helpers and :func:`make_operator` (banded kernel on a CUDA device
 when the band is narrow, COO otherwise) are as in the JAX package.
@@ -30,12 +36,16 @@ import scipy.sparse as sp
 import torch
 
 from ..utils.device import float_dtype, resolve_device
-from . import cuda_build
+from . import cuda_build, row_gather
 from .sparse import CooMatrix
 
-# launch count of K3 (both dtypes); the wrapper adds one where it launches the
-# kernel and nowhere else
+# launch count of K3 (both dtypes, both paths); the wrapper adds one where it
+# launches the kernel and nowhere else
 launches_ell = 0
+# K3 runs the row gather for x of at least this many columns, and one thread
+# per output over the ELL below it (where the gather's lanes would stride
+# over a row's few entries)
+GATHER_MIN_B = 32
 
 _LIB = None
 
@@ -95,14 +105,23 @@ def _library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
             fn.restype = i32
+        for name in ("krt_banded_gather_f32", "krt_banded_gather_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr] * 6 + [i32] * 2 + [ptr]
+            fn.restype = i32
         _LIB = lib
     return _LIB
 
 
-def ell_spmm(cols: torch.Tensor, vals: torch.Tensor,
+def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, row_ptr: torch.Tensor,
+             entry_cols: torch.Tensor, val_off: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
     """K3: y (n, b) = ELL(cols, vals) @ x (n, b) on the card, for int32
-    ``cols`` and f32/f64 ``vals`` (K, n) and x (n, b) of the same dtype."""
+    ``cols`` and f32/f64 ``vals`` (K, n) and x (n, b) of the same dtype, and
+    the ELL's int32 row index (``row_ptr`` of n + 1, ``entry_cols`` and
+    ``val_off`` of nnz, each entry's slot in the flattened ``vals``; see
+    :mod:`.row_gather`). x of at least :data:`GATHER_MIN_B` columns runs the
+    row gather over the index, narrower x the ELL kernel over the tables."""
     global launches_ell
     dev = x.device
     if dev.type != "cuda":
@@ -110,32 +129,36 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor,
                          f"{dev}")
     if x.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"K3 takes float32 or float64, got {x.dtype}")
-    for name, t, dt in (("cols", cols, torch.int32), ("vals", vals, x.dtype),
-                        ("x", x, x.dtype)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, x on {dev}")
-        if t.dtype != dt:
-            raise ValueError(f"{name} must be {dt}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    row_gather.check_launch("K3", row_ptr, entry_cols, val_off, vals, x,
+                            x.dtype, x.dtype)
+    if cols.device != dev or cols.dtype != torch.int32 or \
+            not cols.is_contiguous():
+        raise ValueError(f"cols must be contiguous int32 on {dev}, got "
+                         f"{cols.dtype} on {cols.device}")
     if cols.ndim != 2 or vals.shape != cols.shape or 0 in cols.shape:
         raise ValueError(f"cols {tuple(cols.shape)} and vals "
                          f"{tuple(vals.shape)} must be one non-empty (K, n)")
     K, n = cols.shape
-    if x.ndim != 2 or x.shape[0] != n or x.shape[1] == 0:
-        raise ValueError(f"x must be a non-empty ({n}, b) matrix, got "
-                         f"{tuple(x.shape)}")
+    if x.shape[0] != n:
+        raise ValueError(f"x has {x.shape[0]} rows, the tables {n}")
     b = x.shape[1]
     if n * b > (2**31 - 1) * 256:
         raise ValueError(f"x ({n}, {b}) exceeds the kernel's grid")
     y = torch.empty((n, b), dtype=x.dtype, device=dev)
     lib = _library()
-    fn = (lib.krt_banded_ell_f32 if x.dtype == torch.float32
-          else lib.krt_banded_ell_f64)
+    f32 = x.dtype == torch.float32
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
-                  y.data_ptr(), n, K, b, stream)
+        if b >= GATHER_MIN_B:
+            fn = lib.krt_banded_gather_f32 if f32 else \
+                lib.krt_banded_gather_f64
+            code = fn(row_ptr.data_ptr(), entry_cols.data_ptr(),
+                      val_off.data_ptr(), vals.data_ptr(), x.data_ptr(),
+                      y.data_ptr(), n, b, stream)
+        else:
+            fn = lib.krt_banded_ell_f32 if f32 else lib.krt_banded_ell_f64
+            code = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
+                      y.data_ptr(), n, K, b, stream)
     cuda_build.raise_on(code, fn.__name__)
     launches_ell += 1
     return y
@@ -197,6 +220,12 @@ class BandedEllOperator:
         bw = int(np.abs(rows - entry_cols).max()) if self.nnz else 0
         self.Wv = max((bw + 127) // 128, 1)  # the JAX operator's halo windows
         self.num_windows = 2 * self.Wv + 1
+        # K3's row index for the row gather: the stored entries in CSR
+        # order, each reading its value at slot k·n + r of the flattened
+        # vals, so no padding slot is in it
+        self._row_ptr, self._cols, self._val_off = row_gather.row_index(
+            self._entry_rc, ks * self.n + rows, self.n, vals.numel(),
+            vals.device)
 
     @property
     def shape(self):
@@ -266,7 +295,8 @@ class BandedEllOperator:
         if x.device.type != "cuda":
             raise ValueError(f"unsupported device {x.device}")
         squeeze = x.ndim == 1
-        y = ell_spmm(self.cols, self.vals,
+        y = ell_spmm(self.cols, self.vals, self._row_ptr, self._cols,
+                     self._val_off,
                      self._prepare(x[:, None] if squeeze else x)).to(x.dtype)
         return y[:, 0] if squeeze else y
 

@@ -7,19 +7,19 @@ by super-row; every super-row owns at least one tile so every y row is
 written. The packing (``atiles``, ``slab``/``sup``/``start``, the entry maps)
 equals the JAX package's.
 
-Two kernels in ``csrc/bsr_super.cu`` compute ``A @ x`` over that packing:
+Two kernels in ``csrc/bsr_super.cu`` compute ``A @ x`` over that packing.
+Both are row gathers (``csrc/row_gather.cuh``) over a CSR row index of the
+packing (``row_ptr``, ``cols`` and ``val_off``, each entry's offset in the
+flattened tiles, built once by the operator): each entry's value is read out
+of the tiles, which stay the only copy of the values, and no fill is
+computed.
 
 * K1 (``tile_spmm_bf16``) replaces ``_kernel_bf16`` — modes
-  ``bf16x2``/``bf16x3``: A stored in bf16 (bf16-exact 0/±1 adjacency). It is
-  a row gather (``csrc/row_gather.cuh``) over a CSR row index of the packing
-  (``row_ptr``, ``cols`` and ``val_off``, each entry's offset in the
-  flattened tiles, built once by the operator): each entry's value is read
-  out of the tiles and each gathered f32 x value is split in registers into
-  ``terms`` bf16 parts, each part's products summed in f32 on their own. The
-  tiles stay the only copy of the values, and K1 computes no fill.
+  ``bf16x2``/``bf16x3``: A stored in bf16 (bf16-exact 0/±1 adjacency); each
+  gathered f32 x value is split in registers into ``terms`` bf16 parts, each
+  part's products summed in f32 on their own.
 * K2 (``tile_spmm_full``) replaces ``_kernel_f32`` — mode ``f32`` (f32 or f64
-  storage): dense tile products in full f32 or f64 with FFMA/DFMA, skipping
-  64 × 32 sub-blocks that the structural bitmap marks empty.
+  storage): one FFMA/DFMA an entry in full f32 or f64, never TF32.
 
 Beside each kernel is its plain torch version (a batched tile product plus
 ``index_add_`` by super-row). :meth:`SuperBsrOperator.matmul` runs the plain
@@ -44,10 +44,6 @@ SUP = 4  # 128-row blocks per super-row (tile height 512)
 SLAB = 2  # 128-col blocks per x slab (tile width 256)
 TILE_R = SUP * BLK
 TILE_C = SLAB * BLK
-# sub-block of K2's structural bitmap: must equal the CTA row strip (BM) and
-# the reduction chunk (BK) compiled into csrc/bsr_super.cu
-MASK_BM = 64
-MASK_BK = 32
 MODES = ("f32", "bf16x2", "bf16x3")
 
 # launch counts of K1 and K2 (K2 counts both its f32 and f64 instantiation);
@@ -181,43 +177,12 @@ def _library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.krt_bsr_super_bf16.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
         for name in ("krt_bsr_super_f32", "krt_bsr_super_f64"):
-            getattr(lib, name).argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+            getattr(lib, name).argtypes = [ptr] * 6 + [i32] * 2 + [ptr]
         for name in ("krt_bsr_super_bf16", "krt_bsr_super_f32",
                      "krt_bsr_super_f64"):
             getattr(lib, name).restype = i32
         _LIB = lib
     return _LIB
-
-
-def _check_launch_args(atiles, slab, sup_ptr, blkmask, x, store, compute):
-    """K2's checks of its arguments; returns (super-rows, tile_r, tile_c)."""
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"the super-tile kernels run on CUDA tensors, got {dev}")
-    for name, t, dt in (("atiles", atiles, store), ("slab", slab, torch.int32),
-                        ("sup_ptr", sup_ptr, torch.int32),
-                        ("blkmask", blkmask, torch.uint8), ("x", x, compute)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, x on {dev}")
-        if t.dtype != dt:
-            raise ValueError(f"{name} must be {dt}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    ntile, tile_r, tile_c = atiles.shape
-    if x.ndim != 2 or x.shape[0] == 0 or x.shape[1] == 0:
-        raise ValueError(f"x must be a non-empty (n, b) matrix, got "
-                         f"{tuple(x.shape)}")
-    if tile_r % MASK_BM or tile_c % MASK_BK:
-        raise ValueError(f"tile {tile_r}x{tile_c} is not a multiple of the "
-                         f"kernels' {MASK_BM}x{MASK_BK} sub-block")
-    if slab.shape != (ntile,) or blkmask.shape != (
-            ntile, (tile_r // MASK_BM) * (tile_c // MASK_BK)):
-        raise ValueError("slab/blkmask do not match atiles")
-    nsup = sup_ptr.shape[0] - 1
-    if nsup * tile_r < x.shape[0] or x.shape[0] > 2**31 - 1:
-        raise ValueError(f"x has {x.shape[0]} rows, the tiles cover "
-                         f"{nsup * tile_r}")
-    return nsup, tile_r, tile_c
 
 
 def tile_spmm_bf16(row_ptr, cols, val_off, atiles, x, terms: int):
@@ -244,13 +209,16 @@ def tile_spmm_bf16(row_ptr, cols, val_off, atiles, x, terms: int):
     return y
 
 
-def tile_spmm_full(atiles, slab, sup_ptr, blkmask, x):
-    """K2: y (n, b) = A @ x with A and x both f32 or both f64 (FFMA/DFMA)."""
+def tile_spmm_full(row_ptr, cols, val_off, atiles, x):
+    """K2: y (n, b) = A @ x for x (n, b) in f32 or f64, A's values gathered
+    out of the tiles ``atiles`` (in x's dtype) through the int32 row index
+    (``row_ptr`` of n + 1, ``cols`` and ``val_off`` of nnz; see
+    :mod:`.row_gather`), one FFMA/DFMA an entry."""
     global launches_f32
     if x.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"K2 takes float32 or float64, got {x.dtype}")
-    nsup, tile_r, tile_c = _check_launch_args(
-        atiles, slab, sup_ptr, blkmask, x, x.dtype, x.dtype)
+    row_gather.check_launch("K2", row_ptr, cols, val_off, atiles, x,
+                            x.dtype, x.dtype)
     n, b = x.shape
     y = torch.empty((n, b), dtype=x.dtype, device=x.device)
     lib = _library()
@@ -258,9 +226,9 @@ def tile_spmm_full(atiles, slab, sup_ptr, blkmask, x):
           else lib.krt_bsr_super_f64)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = fn(atiles.data_ptr(), slab.data_ptr(), sup_ptr.data_ptr(),
-                  blkmask.data_ptr(), x.data_ptr(), y.data_ptr(), nsup,
-                  tile_r, tile_c, n, b, stream)
+        code = fn(row_ptr.data_ptr(), cols.data_ptr(), val_off.data_ptr(),
+                  atiles.data_ptr(), x.data_ptr(), y.data_ptr(), n, b,
+                  stream)
     cuda_build.raise_on(code, fn.__name__)
     launches_f32 += 1
     return y
@@ -323,9 +291,7 @@ class SuperBsrOperator:
 
     def _setup(self, atiles, meta, entry_tile, entry_offset, entry_rc, n,
                n_pad, mode, dtype):
-        ntile, tile_r, tile_c = atiles.shape
-        if tile_r % MASK_BM or tile_c % MASK_BK:
-            raise ValueError(f"tile must be a multiple of {MASK_BM}x{MASK_BK}")
+        _, tile_r, tile_c = atiles.shape
         self.n = n
         self.nnz = len(entry_tile)
         self.n_pad = n_pad
@@ -342,23 +308,13 @@ class SuperBsrOperator:
         dev = atiles.device
         self._slab = torch.as_tensor(slab, device=dev)
         self._sup = torch.as_tensor(sup, device=dev)
-        self._sup_ptr = torch.as_tensor(
-            np.searchsorted(sup, np.arange(n_pad // tile_r + 1)).astype(
-                np.int32), device=dev)
-        # K1's row index, in the operator's node order: the entries are in
-        # CSR order, and each reads its value at tile·tile_r·tile_c + offset
-        # of the flattened tiles (shared by with_tiles' operators)
+        # K1's and K2's row index, in the operator's node order: the entries
+        # are in CSR order, and each reads its value at
+        # tile·tile_r·tile_c + offset of the flattened tiles (shared by
+        # with_tiles' operators)
         self._row_ptr, self._cols, self._val_off = row_gather.row_index(
             entry_rc, entry_tile * (tile_r * tile_c) + entry_offset, n,
             atiles.numel(), dev)
-        # K2's structural bitmap of (MASK_BM × MASK_BK) sub-blocks:
-        # frozen-structure edits only touch existing entries, so it never
-        # goes stale
-        kblocks = tile_c // MASK_BK
-        mask = np.zeros((ntile, (tile_r // MASK_BM) * kblocks), np.uint8)
-        mask[entry_tile, (entry_offset // tile_c // MASK_BM) * kblocks
-             + (entry_offset % tile_c) // MASK_BK] = 1
-        self._blkmask = torch.as_tensor(mask, device=dev)
 
     @property
     def shape(self):
@@ -463,8 +419,8 @@ class SuperBsrOperator:
             y = tile_spmm_bf16(self._row_ptr, self._cols, self._val_off,
                                self.atiles, xc, self._terms())
         else:
-            y = tile_spmm_full(self.atiles, self._slab, self._sup_ptr,
-                               self._blkmask, xc)
+            y = tile_spmm_full(self._row_ptr, self._cols, self._val_off,
+                               self.atiles, xc)
         y = y.to(x.dtype)
         return y[:, 0] if squeeze else y
 

@@ -1,11 +1,12 @@
-"""The CSR row index that K1 and K4 (``csrc/row_gather.cuh``) read, and the
-checks their wrappers make before a launch.
+"""The CSR row index that the row-gather kernel (``csrc/row_gather.cuh``:
+K1, K2, K3 for b ≥ 32, K4) reads, and the checks its wrappers make before a
+launch.
 
-Both kernels gather each entry's value out of the operator's own dense value
-storage (super-tiles or 128 × 128 blocks, flattened) through an int32 offset,
-so the storage stays the only copy of the values: edits in place, a replaced
-storage tensor over the same packing and make mode's explicit-zero slots need
-no change to the index.
+Each kernel gathers each entry's value out of the operator's own dense value
+storage (super-tiles, ELL tables or 128 × 128 blocks, flattened) through an
+int32 offset, so the storage stays the only copy of the values: edits in
+place, a replaced storage tensor over the same packing and make mode's
+explicit-zero slots need no change to the index.
 """
 
 from __future__ import annotations

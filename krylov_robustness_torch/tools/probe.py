@@ -24,15 +24,16 @@ per run, and writes each run's table, sorted by device time, to
 graph (K3 in f32 and f64, COO per-step and fused), tables to
 ``DIR/budget_<run>.txt``.
 
-``gather``: K1 and K4 (the row gather of ``csrc/row_gather.cuh``) at the
-smoke's phase-3 shapes, built into ``DIR/gather/<variant>/`` from the
-checkout's sources with the header's constants as they are and as each
-``--variants`` entry sets them (``UNROLL=8``, ``ROWS_PER_WARP=8,WARPS=2``),
-each held against the plain version and timed with CUDA events in turns
-(every variant, then again in reverse order; the better time counts) beside
-cuSPARSE. Then K1 on the hub graph with its values read from a compact copy
-in CSR order (``val_off[e] = e``) in place of the tiles: what the scattered
-value gather costs.
+``gather``: the four kernels that share the row gather of
+``csrc/row_gather.cuh`` (K1, K2, K3 at b ≥ 32, K4) at the smoke's phase-3
+shapes, built into ``DIR/gather/<variant>/`` from the checkout's sources
+with the header's constants as they are and as each ``--variants`` entry
+sets them (``UNROLL=8``, ``ROWS_PER_WARP=8,WARPS=2``), each held against the
+plain version and timed with CUDA events in turns (every variant, then again
+in reverse order; the better time counts) beside cuSPARSE. Then K1 on the
+hub graph with its values read from a compact copy in CSR order
+(``val_off[e] = e``) in place of the tiles: what the scattered value gather
+costs.
 """
 
 from __future__ import annotations
@@ -203,12 +204,19 @@ def probe_budget(smoke, dev, out: Path) -> None:
 
 GATHER_VARIANTS = ("UNROLL=2", "UNROLL=8", "ROWS_PER_WARP=1",
                    "ROWS_PER_WARP=8", "WARPS=1", "WARPS=2", "WARPS=8")
+# each source's row-gather entries (all take six pointers, then n and b,
+# then the stream; K1 takes the bf16 terms after b) and the kernel each
+# launches: {f} is the dtype, f32 or f64
+GATHER_ENTRIES = {"bsr_super": {"K1": "krt_bsr_super_bf16",
+                                "K2": "krt_bsr_super_{f}"},
+                  "banded_ell": {"K3": "krt_banded_gather_{f}"},
+                  "bsr_flat": {"K4": "krt_bsr_flat_{f}"}}
 
 
 def _gather_libs(out: Path, variants) -> dict:
-    """name → (K1 library, K4 library), built from the checkout's sources
-    with the row-gather constants of each variant, one nvcc per source, all
-    started together."""
+    """variant → {kernel: (library, entry name)}, built from the checkout's
+    sources with the row-gather constants of each variant, one nvcc per
+    source, all started together."""
     from ..ops import cuda_build
 
     csrc = cuda_build.SOURCES["bsr_super"].parent
@@ -226,7 +234,7 @@ def _gather_libs(out: Path, variants) -> dict:
             if hits != 1:
                 raise ValueError(f"row_gather.cuh has no constant {key}")
         (d / "row_gather.cuh").write_text(header)
-        for src in ("bsr_super", "bsr_flat"):
+        for src in GATHER_ENTRIES:
             shutil.copy(csrc / f"{src}.cu", d)
             builds.append((name, src, d / f"lib{src}.so", subprocess.Popen(
                 [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
@@ -239,20 +247,20 @@ def _gather_libs(out: Path, variants) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name} {src}:\n{log}")
         dll = ctypes.CDLL(str(lib))
-        fns = ((dll.krt_bsr_super_bf16,) if src == "bsr_super" else
-               (dll.krt_bsr_flat_f32, dll.krt_bsr_flat_f64))
-        for fn in fns:
-            fn.argtypes = [ptr] * 6 + [i32] * (3 if src == "bsr_super"
-                                               else 2) + [ptr]
-            fn.restype = i32
-        libs.setdefault(name, {})[src] = dll
+        for kernel, entry in GATHER_ENTRIES[src].items():
+            for f in ("f32", "f64"):
+                fn = getattr(dll, entry.format(f=f))
+                fn.argtypes = [ptr] * 6 + [i32] * (3 if kernel == "K1"
+                                                   else 2) + [ptr]
+                fn.restype = i32
+            libs.setdefault(name, {})[kernel] = (dll, entry)
     return libs
 
 
 def probe_gather(smoke, dev, out: Path, variants) -> None:
     import scipy.sparse as sp
 
-    from ..ops.banded_spmm import rcm_permutation
+    from ..ops.banded_spmm import BandedEllOperator, rcm_permutation
     from ..ops.bsr import BsrOperator
     from ..ops.bsr_super import SuperBsrOperator
 
@@ -262,74 +270,95 @@ def probe_gather(smoke, dev, out: Path, variants) -> None:
         p = rcm_permutation(A)
         return sp.csr_matrix(A, dtype=np.float64)[p, :].tocsc()[:, p].tocsr()
 
-    road, hub = rcm(road_graph()), rcm(hub_graph())
+    graphs = {"road": rcm(road_graph()), "hub": rcm(hub_graph())}
     f32, f64 = torch.float32, torch.float64
-    ops = {("road", "bf16x2"): SuperBsrOperator(road, dtype=f32, device=dev,
-                                                mode="bf16x2"),
-           ("road", "bf16x3"): SuperBsrOperator(road, dtype=f32, device=dev,
-                                                mode="bf16x3"),
-           ("hub", "bf16x2"): SuperBsrOperator(hub, dtype=f32, device=dev,
-                                               mode="bf16x2"),
-           ("road", "f32"): BsrOperator(road, dtype=f32, device=dev),
-           ("road", "f64"): BsrOperator(road, dtype=f64, device=dev)}
+    # (graph, kernel, label) → (operator, widths)
+    cases = {
+        ("hub", "K1", "bf16x2"): (lambda A: SuperBsrOperator(
+            A, dtype=f32, device=dev, mode="bf16x2"), (500, 520)),
+        ("road", "K1", "bf16x2"): (lambda A: SuperBsrOperator(
+            A, dtype=f32, device=dev, mode="bf16x2"), (512, 500)),
+        ("road", "K1", "bf16x3"): (lambda A: SuperBsrOperator(
+            A, dtype=f32, device=dev, mode="bf16x3"), (512,)),
+        ("road", "K2", "f64"): (lambda A: SuperBsrOperator(
+            A, dtype=f64, device=dev, mode="f32"), (512, 500)),
+        ("hub", "K2", "f32"): (lambda A: SuperBsrOperator(
+            A, dtype=f32, device=dev, mode="f32"), (500,)),
+        ("road", "K3", "f32"): (lambda A: BandedEllOperator(
+            A, dtype=f32, device=dev), (100, 512)),
+        ("road", "K3", "f64"): (lambda A: BandedEllOperator(
+            A, dtype=f64, device=dev), (100,)),
+        ("road", "K4", "f32"): (lambda A: BsrOperator(
+            A, dtype=f32, device=dev), (1, 100, 500, 512)),
+        ("road", "K4", "f64"): (lambda A: BsrOperator(
+            A, dtype=f64, device=dev), (512,)),
+    }
 
-    def launch(name, op, x, compact=None):
+    def launch(name, kernel, op, x, compact=None):
+        """One product through variant ``name``'s entry of ``kernel``;
+        ``compact`` = (val_off, values) replaces the operator's own."""
         y = torch.empty_like(x)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if isinstance(op, SuperBsrOperator):
-            val_off, vals = compact or (op._val_off, op.atiles)
-            code = libs[name]["bsr_super"].krt_bsr_super_bf16(
-                op._row_ptr.data_ptr(), op._cols.data_ptr(),
-                val_off.data_ptr(), vals.data_ptr(), x.data_ptr(),
-                y.data_ptr(), op.n, x.shape[1], op._terms(), stream)
+        if kernel == "K4":
+            row_ptr, cols, val_off, vals = (op.row_ptr, op.cols, op.val_off,
+                                            op.ablocks)
         else:
-            lib = libs[name]["bsr_flat"]
-            fn = lib.krt_bsr_flat_f32 if x.dtype == f32 else \
-                lib.krt_bsr_flat_f64
-            code = fn(op.row_ptr.data_ptr(), op.cols.data_ptr(),
-                      op.val_off.data_ptr(), op.ablocks.data_ptr(),
-                      x.data_ptr(), y.data_ptr(), op.n, x.shape[1], stream)
+            row_ptr, cols, val_off = op._row_ptr, op._cols, op._val_off
+            vals = op.vals if kernel == "K3" else op.atiles
+        val_off, vals = compact or (val_off, vals)
+        dll, entry = libs[name][kernel]
+        fn = getattr(dll, entry.format(f="f32" if x.dtype == f32 else "f64"))
+        terms = (op._terms(),) if kernel == "K1" else ()
+        code = fn(row_ptr.data_ptr(), cols.data_ptr(), val_off.data_ptr(),
+                  vals.data_ptr(), x.data_ptr(), y.data_ptr(), op.n,
+                  x.shape[1], *terms, stream)
         if code != 0:
-            raise RuntimeError(f"{name}: launch failed with CUDA error {code}")
+            raise RuntimeError(f"{name} {kernel}: launch failed with CUDA "
+                               f"error {code}")
         return y
 
-    rng = np.random.default_rng(1)
-    for (graph, label), widths in (
-            (("hub", "bf16x2"), (500, 520)), (("road", "bf16x2"), (512, 500)),
-            (("road", "bf16x3"), (512,)), (("road", "f32"), (1, 100, 500, 512)),
-            (("road", "f64"), (512,))):
-        op = ops[graph, label]
-        A = road if graph == "road" else hub
+    # x as the smoke's phase 3 draws it for each graph, so that each case is
+    # held on the inputs the smoke holds it on
+    x64 = {name: np.random.default_rng(1).standard_normal(
+        (A.shape[0], 520 if name == "hub" else 512))
+        for name, A in graphs.items()}
+    for (graph, kernel, label), (make, widths) in cases.items():
+        A = graphs[graph]
+        op = make(A)
         for b in widths:
-            x = torch.as_tensor(rng.standard_normal((op.n, b)), device=dev,
+            x = torch.as_tensor(x64[graph][:, :b], device=dev,
                                 dtype=f64 if label == "f64" else f32)
             yp = op.matmul_plain(x)
             scale = float(yp.abs().max())
             for name in libs:
-                err = float((launch(name, op, x) - yp).abs().max()) / scale
+                err = float((launch(name, kernel, op, x) - yp).abs().max()
+                            ) / scale
                 smoke.check(err <= smoke.GATES[label],
-                            f"gather {name} {graph} {label} b={b}: {err:.3e}")
+                            f"gather {name} {graph} {kernel} {label} b={b}: "
+                            f"{err:.3e}")
             times = {name: [] for name in libs}
             for order in (list(libs), list(libs)[::-1]):
                 for name in order:
                     times[name].append(smoke.cuda_ms(
-                        lambda: launch(name, op, x), reps=15))
+                        lambda: launch(name, kernel, op, x), reps=15))
             lib_ms = smoke.library_ms(A, x)
-            print(f"[gather] {graph} {label} b={b}: cusparse {lib_ms:.4f} ms; "
-                  + "; ".join(f"{name} {min(t):.4f} ms" for name, t in
-                              times.items()))
-    op = ops["hub", "bf16x2"]
-    x = torch.as_tensor(rng.standard_normal((op.n, 500)), device=dev,
-                        dtype=f32)
+            print(f"[gather] {graph} {kernel} {label} b={b}: cusparse "
+                  f"{lib_ms:.4f} ms; " + "; ".join(
+                      f"{name} {min(t):.4f} ms" for name, t in times.items()))
+        del op
+        torch.cuda.empty_cache()
+    op = cases["hub", "K1", "bf16x2"][0](graphs["hub"])
+    x = torch.as_tensor(x64["hub"][:, :500], device=dev, dtype=f32)
     compact = (torch.arange(op.nnz, dtype=torch.int32, device=dev),
                op.atiles.reshape(-1)[op._val_off.long()].contiguous())
-    smoke.check(torch.equal(launch("as-is", op, x, compact),
-                            launch("as-is", op, x)),
+    smoke.check(torch.equal(launch("as-is", "K1", op, x, compact),
+                            launch("as-is", "K1", op, x)),
                 "gather: the compact values give another product")
     t = {}
     for kind in ("tiles", "compact", "compact", "tiles"):
         ms = smoke.cuda_ms(lambda: launch(
-            "as-is", op, x, compact if kind == "compact" else None), reps=15)
+            "as-is", "K1", op, x, compact if kind == "compact" else None),
+            reps=15)
         t[kind] = min(t.get(kind, ms), ms)
     print(f"[gather] hub bf16x2 b=500, values read from the tiles "
           f"{t['tiles']:.4f} ms, from a compact copy in CSR order "

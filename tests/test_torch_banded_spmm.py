@@ -79,9 +79,10 @@ def test_layout_and_entry_addressing_match_jax():
 
 
 def test_padding_slots_hold_zero_and_own_row():
-    """A padding slot holds val 0 and col r, so the kernel and the plain
-    version both add 0·x[r]: a NaN in x[r] reaches y[r], as it does through
-    a real entry, and nowhere else."""
+    """A padding slot holds val 0 and col r, so the ELL kernel (b below
+    ``GATHER_MIN_B``) and the plain version both add 0·x[r]: a NaN in x[r]
+    reaches y[r], as it does through a real entry, and nowhere else. The row
+    gather never reads a padding slot (``test_row_index_reads_the_ell``)."""
     A = banded_graph(n=300, max_off=60, extra=100)
     op = BandedEllOperator(A, dtype=torch.float64, device="cpu")
     real = np.zeros((op.K, op.n), bool)
@@ -168,11 +169,67 @@ def test_interop_from_jax_lane_windows(jdt):
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
-    """K3 takes CUDA tensors only: a CPU call raises, it never falls back."""
+    """K3 takes CUDA tensors only: a CPU call raises, it never falls back,
+    on either side of the width where it takes the row gather."""
     op = BandedEllOperator(banded_graph(n=300, max_off=30, extra=60),
                            dtype=torch.float32, device="cpu")
-    with pytest.raises(ValueError, match="CUDA"):
-        banded_spmm.ell_spmm(op.cols, op.vals, torch.zeros((300, 4)))
+    for b in (4, banded_spmm.GATHER_MIN_B):
+        with pytest.raises(ValueError, match="CUDA"):
+            banded_spmm.ell_spmm(op.cols, op.vals, op._row_ptr, op._cols,
+                                 op._val_off, torch.zeros((300, b)))
+
+
+@pytest.mark.parametrize("graph", ["banded", "random", "from_tables"])
+def test_row_index_reads_the_ell(graph):
+    """K3's row index over the flattened (K, n) vals is the operator's
+    matrix in CSR form and stays so after ``set_edge`` (the explicit zero
+    kept); it names no padding slot, and its product equals the plain
+    version's slot-order sum for finite x in f64."""
+    if graph == "from_tables":
+        A = banded_graph(n=600, max_off=150, extra=200)
+        jop = jspmm.BandedEllOperator(A, dtype=jnp.float64, interpret=True)
+        op = banded_ell_from_arrays(
+            np.asarray(jop.relT), np.asarray(jop.winT), np.asarray(jop.valT),
+            jop.Wv, jop.n, jop._entry_pos, "cpu")
+    else:
+        A = _permuted(banded_graph(n=500, max_off=60, extra=120)
+                      if graph == "banded" else random_graph(300, 0.03,
+                                                             seed=7))
+        op = BandedEllOperator(A, dtype=torch.float64, device="cpu")
+    A = sp.csr_matrix(A)
+    A.sort_indices()
+    row_ptr, cols, val_off = (t.numpy() for t in (op._row_ptr, op._cols,
+                                                  op._val_off))
+    assert all(t.dtype == torch.int32 for t in (op._row_ptr, op._cols,
+                                                op._val_off))
+    k, r = val_off // op.n, val_off % op.n
+    rows = np.repeat(np.arange(op.n), np.diff(row_ptr))
+    np.testing.assert_array_equal(r, rows)
+    assert np.all(k < np.diff(A.indptr)[rows])  # no padding slot
+
+    def indexed():
+        flat = op.vals.reshape(-1).numpy()
+        return sp.csr_matrix((flat[val_off], cols, row_ptr), shape=A.shape)
+
+    _assert_same_csr(indexed(), A)
+    C = sp.coo_matrix(sp.tril(A, -1))
+    i, j = int(C.row[3]), int(C.col[3])
+    op.set_edge(i, j, 0.0)
+    A2 = A.copy()
+    A2[i, j] = A2[j, i] = 0.0  # explicit zeros: the structure is frozen
+    _assert_same_csr(indexed(), A2)
+    x = np.random.default_rng(9).standard_normal((op.n, 40))
+    y = op.matmul_plain(torch.as_tensor(x)).numpy()
+    assert np.abs(indexed() @ x - y).max() <= 1e-13 * np.abs(y).max()
+
+
+def _assert_same_csr(got, want):
+    """Equal structure (explicit zeros count) and equal values."""
+    want = sp.csr_matrix(want)
+    want.sort_indices()
+    np.testing.assert_array_equal(got.indptr, want.indptr)
+    np.testing.assert_array_equal(got.indices, want.indices)
+    np.testing.assert_array_equal(got.data, want.data)
 
 
 def test_non_cpu_tensor_never_takes_the_plain_path(monkeypatch):

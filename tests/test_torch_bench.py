@@ -78,11 +78,13 @@ def test_coo_lane_is_accurate(b):
 
 
 @pytest.mark.parametrize("kind", ["coo", "banded", "flat", "super_bf16x2",
-                                  "super_f64"])
+                                  "super_f32", "super_f64"])
 def test_bound_counts_the_product_not_the_storage(kind):
     """Every operator's bound counts A's nonzeros as CSR in its value type,
     whatever fill its stored tables carry; its design bytes count the
-    tables, and are never fewer."""
+    tables, and are never fewer. The row gathers (K1–K4) read the CSR
+    index plus each entry's value offset, so theirs are the bound's bytes
+    plus 4·nnz."""
     from krylov_robustness_torch.ops.banded_spmm import BandedEllOperator
     from krylov_robustness_torch.ops.bsr import BsrOperator
     from krylov_robustness_torch.ops.bsr_super import SuperBsrOperator
@@ -97,6 +99,8 @@ def test_bound_counts_the_product_not_the_storage(kind):
         "flat": lambda: BsrOperator(A, dtype=torch.float32, device="cpu"),
         "super_bf16x2": lambda: SuperBsrOperator(
             A, dtype=torch.float32, device="cpu", mode="bf16x2"),
+        "super_f32": lambda: SuperBsrOperator(A, dtype=torch.float32,
+                                              device="cpu", mode="f32"),
         "super_f64": lambda: SuperBsrOperator(A, dtype=torch.float64,
                                               device="cpu", mode="f32"),
     }[kind]
@@ -109,6 +113,8 @@ def test_bound_counts_the_product_not_the_storage(kind):
     assert got["bound_ms"] == nbytes / (bench.HBM_GBPS * 1e9) * 1e3
     assert got["design_bytes"] == bench.table_bytes(op) + 2 * n * b * x_size
     assert got["design_ms"] >= got["bound_ms"]
+    if kind != "coo":
+        assert got["design_bytes"] == nbytes + 4 * A.nnz
 
 
 def test_scoring_lane_matches_jax_in_f64():

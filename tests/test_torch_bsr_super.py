@@ -144,24 +144,6 @@ def test_wide_batch_chunking(monkeypatch):
     assert np.abs(chunked.numpy() - ref).max() / np.abs(ref).max() < 3e-7
 
 
-def test_structural_bitmap_covers_every_entry():
-    """K2 skips sub-blocks the bitmap marks empty: every stored entry
-    (explicit zeros included) must lie in a marked sub-block."""
-    A = sp.csr_matrix(banded_graph(n=1200, max_off=90, extra=200))
-    op = SuperBsrOperator(A, dtype=torch.float64, device="cpu", mode="f32")
-    mask = op._blkmask.numpy()
-    tile_c = op.atiles.shape[2]
-    rows, cols = op._entry_offset // tile_c, op._entry_offset % tile_c
-    kb = tile_c // bsr_super.MASK_BK
-    assert mask[op._entry_tile, (rows // bsr_super.MASK_BM) * kb
-                + cols // bsr_super.MASK_BK].all()
-    flat = op.atiles.reshape(op.ntiles, -1).numpy()
-    blocks = flat.reshape(op.ntiles, op.atiles.shape[1] // bsr_super.MASK_BM,
-                          bsr_super.MASK_BM, kb, bsr_super.MASK_BK)
-    nonzero = np.abs(blocks).sum(axis=(2, 4)) > 0
-    assert np.all(mask.reshape(nonzero.shape)[nonzero])
-
-
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The CUDA kernels take CUDA tensors only: a CPU call raises, it never
     falls back."""
@@ -171,10 +153,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         bsr_super.tile_spmm_bf16(op._row_ptr, op._cols, op._val_off,
                                  op.atiles, x, 2)
-    op32 = SuperBsrOperator(A, dtype=torch.float32, device="cpu", mode="f32")
-    with pytest.raises(ValueError, match="CUDA"):
-        bsr_super.tile_spmm_full(op32.atiles, op32._slab, op32._sup_ptr,
-                                 op32._blkmask, x)
+    for dtype in (torch.float32, torch.float64):
+        full = SuperBsrOperator(A, dtype=dtype, device="cpu", mode="f32")
+        with pytest.raises(ValueError, match="CUDA"):
+            bsr_super.tile_spmm_full(full._row_ptr, full._cols,
+                                     full._val_off, full.atiles,
+                                     x.to(dtype))
 
 
 def test_non_cpu_tensor_never_takes_the_plain_path(monkeypatch):
@@ -189,15 +173,21 @@ def test_non_cpu_tensor_never_takes_the_plain_path(monkeypatch):
     assert not called
 
 
+@pytest.mark.parametrize("mode,dtype", [
+    ("bf16x2", torch.float32),   # K1 over bf16 tiles
+    ("f32", torch.float32),      # K2 over f32 tiles
+    ("f32", torch.float64),      # K2 over f64 tiles
+])
 @pytest.mark.parametrize("graph", ["banded", "random", "make_slots"])
-def test_row_index_reads_the_packed_matrix(graph):
-    """K1's row index over the flattened tiles is the packed matrix in CSR
-    form, explicit zeros included, and stays so after ``set_edge`` and over
-    ``with_tiles``' replacement storage; every offset lies inside the
-    tiles."""
+def test_row_index_reads_the_packed_matrix(graph, mode, dtype):
+    """K1's and K2's row index over the flattened tiles is the packed matrix
+    in CSR form, explicit zeros included, and stays so after ``set_edge``
+    and over ``with_tiles``' replacement storage; every offset lies inside
+    the tiles."""
     A = sp.csr_matrix(_index_graph(graph))
     A.sort_indices()
-    op = SuperBsrOperator(A, dtype=torch.float32, device="cpu", mode="bf16x2")
+    op = SuperBsrOperator(A, dtype=dtype, device="cpu", mode=mode)
+    assert op.atiles.dtype == (torch.bfloat16 if mode == "bf16x2" else dtype)
     row_ptr, cols, val_off = (t.numpy() for t in (op._row_ptr, op._cols,
                                                   op._val_off))
     assert all(t.dtype == torch.int32 for t in (op._row_ptr, op._cols,
@@ -205,7 +195,7 @@ def test_row_index_reads_the_packed_matrix(graph):
     assert val_off.min() >= 0 and val_off.max() < op.atiles.numel()
 
     def indexed(tiles):
-        flat = tiles.reshape(-1).float().numpy()
+        flat = tiles.reshape(-1).double().numpy()
         return sp.csr_matrix((flat[val_off], cols, row_ptr), shape=A.shape)
 
     _assert_same_csr(indexed(op.atiles), A)
