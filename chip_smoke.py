@@ -23,7 +23,8 @@ Phases, each of which raises on failure (exit code 1):
    ca-AstroPh's scale (both RCM-permuted), at b = 512 and at the main paths'
    widths (K1 also at b = 250, K3 at b = 1, 100, 512 in f32 and 100 in f64,
    K4 at b = 1, 100, 250, 500, 512 in f32 and 512 in f64, on the road
-   graph); the hub graph's flat blocks exceed their budget, so
+   graph; K2 f32 on the hub graph also on a second, independently drawn x);
+   the hub graph's flat blocks exceed their budget, so
    ``make_bsr_operator`` falls back to COO there;
 4. greedy path, road graph: ``greedy_krylov`` break/make on the per-step
    lane through K1 (f32) and K2 (f64), picks held against the COO backend;
@@ -38,13 +39,24 @@ Phases, each of which raises on failure (exit code 1):
 8. bench path: ``python3 -m krylov_robustness_torch.bench`` in this process
    (its SpMM lanes on the road graph: COO, K4 and K1; its greedy lanes on
    the hub graph), its JSON line printed as it is;
-9. replay: copies of the inputs of the last launch of each kernel at each
+9. weighted path (Tables 5-6; a ``CooMatrix`` path that launches none of
+   K1-K4): seeded stand-ins for three power grids (n = 94, 1,200, 3,684)
+   written as ``voltage_adjacencies_average_2.mat`` into the temporary data
+   root; ``build_problem``, ``fun_and_grad`` and ``hessian`` in f64 on the
+   card held against the port's CPU f64 (and a dense scipy expm) on the two
+   smaller grids, ``run_country`` on all three on the card and the CPU;
+   the CLI's ``weighted`` subcommand on cuda:0 in f32 (and ``--hessian
+   --fun sinh``); then the JAX package's Vermont-scale rewiring of
+   trace(sinh(A)) (``scripts/config5_sharded_sinh_rewire.py``) on the road
+   graph, its objective held against an independent evaluation and two
+   gradient coordinates against central differences;
+10. replay: copies of the inputs of the last launch of each kernel at each
    shape of phases 4-8 (outside the bench's timed lanes), rerun through the
    kernel and its plain version (for K1, K2 and K4 over the tiles or blocks
    that their row index implies, for K3 over its ELL tables).
 
-Each path (4-5, 6, 7, 8) runs with every launch count set to 0 just before
-it and read just after. The line before the last is a JSON object with one
+Each path (4-5, 6, 7, 8, 9) runs with every launch count set to 0 just
+before it and read just after. The line before the last is a JSON object with one
 entry per kernel (its count on the path that runs it, errors and times of
 phase 3); the last line is ``{"ok": true, "device": {...}}``. Without CUDA
 the script exits with code 2 and prints no result. Imports nothing of JAX.
@@ -265,7 +277,8 @@ def phase_kernels(dev, graphs) -> dict:
         for label, widths in cases:
             mode, dtype = MODES[label]
             op = SuperBsrOperator(Ap, dtype=dtype, device=dev, mode=mode)
-            unit = "ffma" if dtype == torch.float32 else "dfma"
+            # K2 sums in f64 in both of its modes
+            unit = "ffma" if label.startswith("bf16") else "dfma"
             for b in widths:
                 x, errs, diff = hold(op, Ap, x64[:, :b], dtype, dev, label,
                                      f"{name} {label} b={b}")
@@ -283,6 +296,14 @@ def phase_kernels(dev, graphs) -> dict:
                 hold_set_edge(op, Ap, x64, dev, label, "K1")
             if (name, label) == ("road", "f32"):
                 hold_set_edge(op, Ap, x64, dev, label, "K2", (8, 512))
+            if (name, label) == ("hub", "f32"):
+                # a second, independent draw: on some x a sequential f32 sum
+                # over a hub row sat at the gate (PERF.md)
+                x2 = np.random.default_rng(2).standard_normal((n, 500))
+                _, errs, _ = hold(op, Ap, x2, dtype, dev, label,
+                                  "hub f32 b=500 second x")
+                print(f"[kernels] hub f32: n={n} nnz={nnz} b=500 second x "
+                      f"(seed 2): {errs}")
             del op
             torch.cuda.empty_cache()
     return stats
@@ -873,6 +894,395 @@ def phase_bench(card: str, capture: MainPathCapture) -> None:
           "bench: a number is not finite and > 0")
 
 
+# -- weighted path (paper §6, Tables 5-6) ------------------------------------
+# seeded stand-ins for voltage_adjacencies_average_2.mat: the smallest and the
+# largest of the paper's power grids (n = 94, 3,684), and one grid between
+# the n ≤ 130 dense fallback of fun_update and ndense = 500 of build_problem
+GRIDS = {"grid94": (94, 1), "grid1200": (1200, 2), "grid3684": (3684, 3)}
+METHODS = ("tuning", "rewire", "add")
+# card f64 against the port's CPU f64 on the same inputs, relative to the
+# CPU value's largest magnitude
+WEIGHTED_GATES = {"objective": 1e-10, "gradient": 1e-9, "hessian": 1e-8,
+                  "dfA": 1e-10, "dense": 1e-6, "score": 1e-6}
+
+
+def grid_standin(n: int, seed: int, mean_degree: float = 2.7):
+    """A weighted power-grid-like graph: n seeded points in the unit square,
+    the Euclidean spanning tree of their Delaunay triangulation (connected,
+    planar) plus its shortest other edges up to ``mean_degree``, weights
+    uniform in [0.1, 1]."""
+    from scipy.sparse.csgraph import minimum_spanning_tree
+    from scipy.spatial import Delaunay
+
+    rng = np.random.default_rng(seed)
+    pts = rng.random((n, 2))
+    tri = Delaunay(pts).simplices
+    e = np.concatenate([tri[:, [0, 1]], tri[:, [1, 2]], tri[:, [0, 2]]])
+    e = np.unique(np.sort(e, axis=1), axis=0)
+    length = np.linalg.norm(pts[e[:, 0]] - pts[e[:, 1]], axis=1)
+    T = sp.coo_matrix(minimum_spanning_tree(
+        sp.coo_matrix((length, (e[:, 0], e[:, 1])), shape=(n, n))))
+    tree = set(zip(T.row.tolist(), T.col.tolist()))
+    rest = [k for k in np.argsort(length, kind="stable")
+            if (e[k, 0], e[k, 1]) not in tree]
+    extra = e[rest[:int(round((mean_degree / 2 - 1) * n)) + 1]]
+    E = np.concatenate([np.stack([T.row, T.col], 1), extra])
+    A = sp.coo_matrix((rng.uniform(0.1, 1.0, len(E)), (E[:, 0], E[:, 1])),
+                      shape=(n, n))
+    return sp.csr_matrix(A + A.T)
+
+
+def write_grids(root: Path) -> dict:
+    """The stand-ins as one ``.mat`` in the layout ``load_power_grids``
+    reads (one sparse matrix a grid); returns name → dense matrix as the
+    loader gives it back."""
+    import scipy.io
+
+    from krylov_robustness_torch.graphs.io import load_power_grids
+
+    path = root / "datasets_paper" / "voltage_adjacencies_average_2.mat"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    scipy.io.savemat(str(path), {name: sp.csc_matrix(grid_standin(n, seed))
+                                 for name, (n, seed) in GRIDS.items()})
+    grids = load_power_grids()
+    check(list(grids) == list(GRIDS), f"the loader read {list(grids)}")
+    for name, Ad in grids.items():
+        A = sp.csr_matrix(Ad)
+        ncomp = sp.csgraph.connected_components(A, directed=False)[0]
+        print(f"[weighted] {name}: n={A.shape[0]} edges={A.nnz // 2} mean "
+              f"degree {A.nnz / A.shape[0]:.3f} components {ncomp} weights "
+              f"{A.data.min():.3f}..{A.data.max():.3f}")
+        check(ncomp == 1 and A.data.min() > 0, f"{name}: not connected or "
+              f"a weight <= 0")
+    return grids
+
+
+def rel(a, b) -> float:
+    """max|a − b| over max|b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def gate(what: str, err: float, where: str) -> str:
+    check(err <= WEIGHTED_GATES[what], f"{where}: {what} {err:.3e} over "
+          f"{WEIGHTED_GATES[what]:.0e}")
+    return f"{what} {err:.3e}"
+
+
+@contextlib.contextmanager
+def operators_seen():
+    """The type of every operator that the Arnoldi and Lanczos steps and
+    the expmv recurrence multiply with, while active."""
+    from krylov_robustness_torch.funm import expmv
+    from krylov_robustness_torch.krylov import arnoldi, lanczos
+
+    seen = set()
+
+    def spy(mod, name):
+        fn = getattr(mod, name)
+
+        def run(A, *args, **kwargs):
+            seen.add(type(A).__name__)
+            return fn(A, *args, **kwargs)
+        return mock.patch.object(mod, name, run)
+
+    with spy(arnoldi, "_spmm_batch"), spy(lanczos, "_spmm_nb"), \
+            spy(expmv, "_expmv_core"):
+        yield seen
+
+
+class Problems:
+    """While active, keeps every ``ContinuousProblem`` that
+    ``experiments/weighted.py`` builds, by (n, method)."""
+
+    def __enter__(self):
+        from krylov_robustness_torch.experiments import weighted
+
+        build = weighted.build_problem
+        self.kept = {}
+
+        def keep(A, M, c, method, **kw):
+            self.kept[A.shape[0], method] = p = build(A, M, c, method, **kw)
+            return p
+        self._patch = mock.patch.object(weighted, "build_problem", keep)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+def check_x(where: str, x, prob) -> None:
+    """x within its bounds and the budget."""
+    check(np.all(x >= prob.lb - 1e-8) and np.all(x <= prob.ub + 1e-8),
+          f"{where}: x outside its bounds")
+    check(np.sum(x) <= prob.budget + 1e-6, f"{where}: x over the budget")
+
+
+def weighted_f64(dev, grids, root: Path) -> dict:
+    """The continuous path in f64 on the card against the port's CPU f64 on
+    the same inputs: build_problem, fun_and_grad and hessian on the n = 94
+    and ~1,200 grids for each method (the objective also against a dense
+    scipy expm), then run_country on every grid at maxiter = 20. Returns
+    (grid, method) → the card's score in %."""
+    import scipy.linalg
+
+    from krylov_robustness_torch.experiments.weighted import (
+        WEIGHTED_COLUMNS,
+        run_country,
+    )
+    from krylov_robustness_torch.funm.normest import normest2_host
+    from krylov_robustness_torch.graphs.centrality import compute_centrality
+    from krylov_robustness_torch.graphs.preprocess import preprocess_weighted
+    from krylov_robustness_torch.ops.sparse import CooMatrix
+    from krylov_robustness_torch.optimize.continuous import (
+        build_problem,
+        fun_and_grad,
+        hessian,
+    )
+    from krylov_robustness_torch.updates.low_rank import weights_to_low_rank
+    from krylov_robustness_torch.utils.config import WeightedConfig
+    from krylov_robustness_torch.utils.logging import ResultLog
+
+    cpu = torch.device("cpu")
+    for name in ("grid94", "grid1200"):
+        Ad = preprocess_weighted(grids[name])
+        A, n = sp.csr_matrix(Ad), Ad.shape[0]
+        nrm = normest2_host(A)
+        ops = {d: CooMatrix.from_scipy(A, device=d) for d in (dev, cpu)}
+        cent = {d: compute_centrality(M, "eig") for d, M in ops.items()}
+        tr0 = float(np.trace(scipy.linalg.expm(Ad)))
+        for method in METHODS:
+            where = f"{name} {method}"
+            t0 = time.perf_counter()
+            p = {d: build_problem(A, M, cent[d], method,
+                                  tol=1e-12 * float(np.exp(nrm)))
+                 for d, M in ops.items()}
+            check(np.array_equal(p[dev].Omega, p[cpu].Omega)
+                  and np.array_equal(p[dev].lb, p[cpu].lb)
+                  and np.array_equal(p[dev].ub, p[cpu].ub),
+                  f"{where}: Omega or bounds differ from the CPU's")
+            errs = [f"Omega ({len(p[cpu].Omega)} edges) identical",
+                    gate("dfA", rel(p[dev].dfA, p[cpu].dfA), where)]
+            X = 0.3 * p[cpu].ub
+            fg = {d: fun_and_grad(X, M, p[cpu].Omega, p[cpu].dfA, tol=1e-12,
+                                  nrmA=nrm) for d, M in ops.items()}
+            H = {d: hessian(X, A, p[cpu].Omega, tol=1e-12, device=d)
+                 for d in ops}
+            U, B, _ = weights_to_low_rank(p[cpu].Omega, X, n)
+            dense = -(float(np.trace(scipy.linalg.expm(Ad + U @ B @ U.T)))
+                      - tr0)
+            errs += [gate("objective", rel(fg[dev][0], fg[cpu][0]), where),
+                     gate("gradient", rel(fg[dev][1], fg[cpu][1]), where),
+                     gate("hessian", rel(H[dev], H[cpu]), where),
+                     gate("dense", rel(fg[dev][0], dense), where + " card"),
+                     gate("dense", rel(fg[cpu][0], dense), where + " cpu")]
+            print(f"[weighted] f64 card vs cpu, {where}, x = 0.3·ub: "
+                  f"objective {fg[dev][0]:.12e} (dense expm {dense:.12e}); "
+                  f"{'; '.join(errs)}; {time.perf_counter() - t0:.2f} s")
+
+    scores = {}
+    for lane, d in (("card", dev), ("cpu", cpu)):
+        log = ResultLog(root / f"out_f64_{lane}", "weighted_exp_lbfgs",
+                        columns=WEIGHTED_COLUMNS, key=("dataset", "method"))
+        with Problems() as probs:
+            for name in GRIDS:
+                t0 = time.perf_counter()
+                res = run_country(grids[name], name,
+                                  WeightedConfig(maxiter=20), log,
+                                  verbose=False, device=d)
+                n = grids[name].shape[0]
+                for method, r in res.items():
+                    check_x(f"{lane} {name} {method}", r.x,
+                            probs.kept[n, method])
+                print(f"[weighted] run_country {name} f64 on the {lane}: "
+                      f"{time.perf_counter() - t0:.2f} s")
+        for row in log.rows:
+            scores[lane, row["dataset"], row["method"]] = row
+    for name in GRIDS:
+        for method in METHODS:
+            rc, rh = scores["card", name, method], scores["cpu", name, method]
+            where = f"run_country {name} {method}"
+            err = gate("score", rel(rc["score_pct"], rh["score_pct"]), where)
+            print(f"[weighted] {where} f64: card {rc['score_pct']:.10f}% "
+                  f"({rc['iterations']} it, {rc['time']:.2f} s), cpu "
+                  f"{rh['score_pct']:.10f}% ({rh['iterations']} it, "
+                  f"{rh['time']:.2f} s); {err}")
+            check(rc["score_pct"] > 0, f"{where}: score <= 0")
+    return {(name, method): scores["card", name, method]["score_pct"]
+            for name in GRIDS for method in METHODS}
+
+
+def weighted_cli(dev, grids, root: Path, f64: dict) -> None:
+    """The CLI's weighted subcommand on cuda:0 (f32): every grid, then
+    ``--hessian --fun sinh`` on the two smaller ones, each row printed
+    beside the card's f64 score (the f32–f64 gap is reported, not gated)."""
+    from krylov_robustness_torch.experiments.weighted import (
+        WEIGHTED_COLUMNS,
+        run_country,
+    )
+    from krylov_robustness_torch.utils.config import WeightedConfig
+    from krylov_robustness_torch.utils.logging import ResultLog
+
+    out = root / "out_weighted"
+    small = ("grid94", "grid1200")
+    wall = run_cli(["--out-dir", str(out), "weighted", "--countries", *GRIDS,
+                    "--maxiter", "20"])
+    print(f"[weighted] CLI exp lbfgs wall {wall:.2f} s")
+    wall = run_cli(["--out-dir", str(out), "weighted", "--hessian", "--fun",
+                    "sinh", "--countries", *small, "--maxiter", "20"])
+    print(f"[weighted] CLI sinh hessian wall {wall:.2f} s")
+    # the f64 reference of the sinh hessian rows, on the card
+    log = ResultLog(root / "out_f64_sinh", "weighted_sinh_hessian",
+                    columns=WEIGHTED_COLUMNS, key=("dataset", "method"))
+    for name in small:
+        for method, r in run_country(
+                grids[name], name, WeightedConfig(fun="sinh", use_hessian=True,
+                                                  maxiter=20),
+                log, verbose=False, device=dev).items():
+            f64[name, method, "sinh"] = float(next(
+                row["score_pct"] for row in log.rows
+                if row["dataset"] == name and row["method"] == method))
+    for tag, key in (("exp_lbfgs", ()), ("sinh_hessian", ("sinh",))):
+        with open(next(out.glob(f"results_weighted_{tag}_*.csv")),
+                  newline="") as f:
+            rows = list(csv.DictReader(f))
+        check(len(rows) == (9 if not key else 6),
+              f"CLI {tag}: {len(rows)} rows")
+        for r in rows:
+            s = float(r["score_pct"])
+            ref = f64[(r["dataset"], r["method"], *key)]
+            print(f"[weighted] CLI {tag} f32 {r['dataset']} n={r['n']} "
+                  f"{r['method']}: score {s:.6f}% (f64 {ref:.6f}%, gap "
+                  f"{abs(s - ref) / abs(ref):.3e}) it {r['iterations']} "
+                  f"time {float(r['time']):.2f} s")
+            check(np.isfinite(s) and s > 0 and np.isfinite(float(r["time"])),
+                  f"CLI {tag} {r['dataset']} {r['method']}: score {s}")
+
+
+def vermont_problem(dev, A):
+    """The search space of the JAX package's
+    scripts/config5_sharded_sinh_rewire.py on one card: rewiring of
+    trace(sinh(A)), COO f64, search space 30, 10 modifiable edges, ndense 0,
+    expmv entries, build tol 1e-6·sinh(‖A‖). Returns (A as CSR f64, the
+    operator, ‖A‖, the problem, its build seconds)."""
+    from krylov_robustness_torch.funm.normest import normest2_host
+    from krylov_robustness_torch.graphs.centrality import (
+        compute_centrality_host,
+    )
+    from krylov_robustness_torch.ops.sparse import CooMatrix
+    from krylov_robustness_torch.optimize.continuous import build_problem
+
+    A = sp.csr_matrix(A, dtype=np.float64)
+    M = CooMatrix.from_scipy(A, dtype=torch.float64, device=dev)
+    nrm = normest2_host(A, tol=1e-2)
+    c = compute_centrality_host(A, "eig")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prob = build_problem(
+        A, M, c, "rewire", fun="sinh", search_space=30, modifiable_edges=10,
+        heur_order="min", total_weight=10.0, ndense=0,
+        tol=1e-6 * float(np.sinh(nrm)), entries_method="expmv")
+    return A, M, nrm, prob, time.perf_counter() - t0
+
+
+def weighted_vermont(dev, A) -> None:
+    """:func:`vermont_problem` optimized at the script's maxiter = 50,
+    checked against an independent objective and central differences of
+    it."""
+    from krylov_robustness_torch.funm.expmv import (
+        expmv,
+        select_taylor_degree,
+    )
+    from krylov_robustness_torch.funm.trace import mc_trace
+    from krylov_robustness_torch.optimize import continuous
+    from krylov_robustness_torch.updates.low_rank import weights_to_low_rank
+    from krylov_robustness_torch.updates.trace_update import (
+        trace_fun_update_batched,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    A, M, nrm, prob, t_build = vermont_problem(dev, A)
+    n = A.shape[0]
+    calls = []
+    fun_and_grad = continuous.fun_and_grad
+
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        out = fun_and_grad(*args, **kwargs)
+        calls.append(time.perf_counter() - t)
+        return out
+    t0 = time.perf_counter()
+    with mock.patch.object(continuous, "fun_and_grad", timed):
+        res = continuous.optimize_weights(A, M, prob, fun="sinh", tol=1e-6,
+                                          maxiter=50, nrmA=nrm)
+    t_opt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    nodes = len(np.unique(prob.Omega))
+    print(f"[vermont] n={n} edges={A.nnz // 2} ‖A‖={nrm:.6f} rewire sinh: "
+          f"{len(prob.Omega)} edges over {nodes} nodes; build "
+          f"{t_build:.2f} s, optimize {t_opt:.2f} s ({res.iterations} it, "
+          f"{len(calls)} fun_and_grad calls, median "
+          f"{statistics.median(calls) * 1e3:.1f} ms, host outside them "
+          f"{t_opt - sum(calls):.2f} s), peak device memory "
+          f"{peak / 2**30:.3f} GiB; {res.message}")
+    check_x("vermont", res.x, prob)
+    check(-res.fval > 0, f"vermont: Δtrace {-res.fval} <= 0")
+
+    def objective(x, tol):
+        U, B, _ = weights_to_low_rank(prob.Omega, x, n)
+        r = trace_fun_update_batched(
+            M, torch.as_tensor(U, device=dev)[None],
+            torch.as_tensor(B, device=dev)[None], fun="sinh",
+            tol=tol * float(np.sinh(nrm)))
+        return -float(r.delta[0])
+
+    f_ind = objective(res.x, 1e-12)
+    err = abs(res.fval - f_ind) / abs(f_ind)
+    print(f"[vermont] objective at x {res.fval:.12e}, independent "
+          f"trace_fun_update_batched (tol 1e-12·sinh‖A‖) {f_ind:.12e}: rel "
+          f"{err:.3e} (gate 1e-6)")
+    check(err <= 1e-6, f"vermont: objective off by {err:.3e}")
+    _, g = continuous.fun_and_grad(res.x, M, prob.Omega, prob.dfA,
+                                   fun="sinh", tol=1e-6, nrmA=nrm)
+    h = 1e-4
+    half = len(prob.Omega) // 2
+    for k in (int(np.argmax(np.abs(g[:half]))),
+              half + int(np.argmax(np.abs(g[half:])))):
+        e = np.zeros_like(res.x)
+        e[k] = h
+        fd = (objective(res.x + e, 1e-12) - objective(res.x - e, 1e-12)) / (
+            2 * h)
+        err = abs(g[k] - fd) / abs(fd)
+        print(f"[vermont] gradient[{k}] (edge {prob.Omega[k].tolist()}) "
+              f"{g[k]:.10e}, central difference (h = {h}) {fd:.10e}: rel "
+              f"{err:.3e} (gate 1e-4)")
+        check(err <= 1e-4, f"vermont: gradient[{k}] off by {err:.3e}")
+    plans = [select_taylor_degree(M, t=t, b_cols=10) for t in (1.0, -1.0)]
+    tr_sinh, _, _ = mc_trace(
+        lambda x: (expmv(M, x, t=1.0, plan=plans[0])
+                   - expmv(M, x, t=-1.0, plan=plans[1])) / 2,
+        n, tol=1e-3, maxit=1000, device=dev)
+    print(f"[vermont] Δtrace sinh {-res.fval:.10e}, trace(sinh(A)) ≈ "
+          f"{float(tr_sinh):.6e} (Hutchinson, tol 1e-3): score "
+          f"{-res.fval / float(tr_sinh) * 100:.6f}%")
+
+
+def phase_weighted(dev, road, root: Path) -> None:
+    """Tables 5-6: the continuous path on the power-grid stand-ins (f64 on
+    the card against the CPU, then the CLI in f32), then at Vermont's scale;
+    every operator it multiplies with is a ``CooMatrix``."""
+    t0 = time.perf_counter()
+    with operators_seen() as seen:
+        grids = write_grids(root)
+        f64 = weighted_f64(dev, grids, root)
+        weighted_cli(dev, grids, root, f64)
+        weighted_vermont(dev, road)
+    print(f"[weighted] operators {sorted(seen)}; path wall "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(seen == {"CooMatrix"}, f"weighted path operators {sorted(seen)}")
+
+
 def launch_counts() -> dict:
     from krylov_robustness_torch.ops import banded_spmm, bsr, bsr_super
 
@@ -915,12 +1325,16 @@ def run(dev, root: Path) -> int:
         budget = drive("budget", phase_budget, dev, graphs["road"], root)
         tables = drive("tables", phase_tables, graphs["hub"], root)
         benched = drive("bench", phase_bench, card, capture)
+        weighted = drive("weighted", phase_weighted, dev, graphs["road"],
+                         root)
     check(greedy["K1"] and greedy["K2"],
           f"greedy path: a kernel was not launched: {greedy}")
     check(budget["K3"] > 0, f"budget path: K3 was not launched: {budget}")
     check(tables["K1"] > 0, f"tables path: K1 was not launched: {tables}")
     check(benched["K4"] > 0 and benched["K1"] > 0,
           f"bench path: a kernel was not launched: {benched}")
+    check(not any(weighted.values()),
+          f"weighted path: a kernel was launched: {weighted}")
     replayed = capture.replay()
     check("K4" in replayed, "replay: no K4 launch was kept")
     entries = (("K1", "K1 tile_spmm_bf16 (bf16x2)", greedy,

@@ -5,23 +5,28 @@ tree and public functions, imports ``torch``, numpy and scipy, and never JAX.
 Every public entry that creates tensors takes an explicit ``device``; nothing
 picks one by itself.
 
-Ported so far (the greedy edge break/make main path and the paper driver):
+Ported so far (the greedy edge break/make main path, the continuous
+optimizer and the paper driver):
 
   ops          ``CooMatrix`` + plain gather/``index_add_`` SpMM, the
                super-tile block-sparse operator and the banded-ELL operator
                with their hand-written Hopper kernels (``csrc/``, built by
                ``ops/cuda_build.py``), RCM helpers, the Sturm banded
                eigensolver
-  funm         scalar functions, dense trace differences, norm estimates,
+  funm         scalar functions, dense trace differences and Fréchet
+               divided differences, norm estimates,
                the Taylor ``expmv`` action, stochastic trace(exp(A))
-  krylov       batched block Lanczos
+  krylov       batched block Lanczos, stored-basis block Arnoldi
   updates      batched Δtrace f(A + U B Uᵀ) scoring of candidate edges,
-               edge sets as low-rank factors
-  optimize     greedy break/make, per-step and fused multi-step lanes
+               edge sets and weights as low-rank factors, low-rank
+               f(A + U B Uᵀ) − f(A), entries and Fréchet derivatives of f(A)
+  optimize     greedy break/make, per-step and fused multi-step lanes; the
+               continuous tuning/rewire/add problems under trust-constr
   graphs       dataset loaders, preprocessing, candidate selection,
                centralities
   baselines    MIOBI and EIGENV
-  experiments  the Tables 2-3 and Figures 1-4 drivers and their CLI
+  experiments  the Tables 2-3, Figures 1-4 and Tables 5-6 drivers and
+               their CLI
                (``python -m krylov_robustness_torch.experiments``)
   utils        device resolution, finite checks, configs, result logs,
                checkpoints

@@ -3,7 +3,8 @@
 // Replaces the Pallas TPU kernels of krylov_robustness_tpu/ops/pallas_bsr_super.py:
 //   K1  row_gather_kernel<bf16, float, terms> (csrc/row_gather.cuh)
 //         <-  _kernel_bf16 (:97, launched by _tile_spmm_bf16 at :181)
-//   K2  row_gather_kernel<float, float, 1> and <double, double, 1>
+//   K2  row_gather_kernel<float, float, double, 1> (f32 values and x, f64
+//         sums) and <double, double, double, 1>
 //         <-  _kernel_f32 (:82, launched by _tile_spmm_f32 at :135)
 //
 // The (RCM-permuted) adjacency is packed into dense tile_r x tile_c
@@ -21,8 +22,12 @@
 // registers and each part's products accumulate in an f32 sum of their own.
 //
 // K2: y (n, b) = A x in full f32 or f64, for values that are not bf16-exact
-// and for f64: one FFMA (f32, never TF32) or DFMA (f64) an entry, in CSR
-// order for b >= 32 and as a tree over a warp's lanes for b < 32.
+// and for f64: one DFMA an entry into an f64 sum (also for f32 values and x,
+// rounded to f32 once at the store; never TF32), in CSR order for b >= 32
+// and as a tree over a warp's lanes for b < 32. A sequential f32 sum over a
+// hub row of up to 511 entries sat at the f32 gate of 1e-6 of max|y|
+// (PERF.md); the f64 sum costs ~2e8 DFMA at b = 500 on a hub graph at
+// ca-AstroPh's scale, against gathers that take ~0.3 ms.
 //
 // Why the tiles are not computed whole. The TPU packs tiles because its
 // matrix unit is dense and Mosaic cannot gather. The tiles are nearly empty:
@@ -75,13 +80,17 @@ int krt_bsr_super_bf16(const void* row_ptr, const void* cols,
   }
 }
 
+// The sum type of K2 in f32 (`tools/probe.py gather --variants
+// K2F32Sum=float` builds the sequential f32 sum it replaced).
+using K2F32Sum = double;
+
 // K2 in f32: y (n, b) = A x (n, b) over the row index into the flattened f32
-// tiles, FFMA only.
+// tiles, each sum in f64 (DFMA) and rounded to f32 once.
 int krt_bsr_super_f32(const void* row_ptr, const void* cols,
                       const void* val_off, const void* atiles, const void* x,
                       void* y, int n, int b, void* stream) {
-  return row_gather::launch<float, float, 1>(row_ptr, cols, val_off, atiles,
-                                             x, y, n, b, stream);
+  return row_gather::launch<float, float, 1, K2F32Sum>(
+      row_ptr, cols, val_off, atiles, x, y, n, b, stream);
 }
 
 // K2 in f64: y (n, b) = A x (n, b) over the row index into the flattened f64

@@ -9,8 +9,10 @@
 // value edit in place, a replaced storage tensor over the same packing or an
 // explicit-zero slot needs no change here. With x and y row-major (n, b),
 //   y[r, c] = sum over e of vals[val_off[e]] * x[cols[e], c],
-// one fused multiply-add per entry in CSR order: FFMA for float, DFMA for
-// double, never TF32. With TERMS > 1 (K1: bf16 values, f32 x) each gathered
+// one fused multiply-add per entry in CSR order into a sum of type Acc,
+// rounded to T once at the store: FFMA for float, DFMA for double (and for
+// float x summed in double, K2 in f32), never TF32. Acc defaults to T, and
+// then every conversion below is the identity. With TERMS > 1 (K1: bf16 values, f32 x) each gathered
 // x value is split in registers into TERMS bf16 parts, each the
 // round-to-nearest bf16 of what the earlier parts left; each part's products
 // accumulate in an f32 sum of their own, and the sums are added at the end,
@@ -66,10 +68,10 @@ __device__ __forceinline__ double fused_madd(double a, double b, double c) {
 }
 
 // acc[k] += a * (part k of xv): xv itself for TERMS = 1, else its bf16 parts.
-template <int TERMS, typename T>
-__device__ __forceinline__ void accumulate(T (&acc)[TERMS], T a, T xv) {
+template <int TERMS, typename Acc, typename T>
+__device__ __forceinline__ void accumulate(Acc (&acc)[TERMS], T a, T xv) {
   if constexpr (TERMS == 1) {
-    acc[0] = fused_madd(a, xv, acc[0]);
+    acc[0] = fused_madd(Acc(a), Acc(xv), acc[0]);
   } else {
     float rem = xv;
 #pragma unroll
@@ -82,9 +84,9 @@ __device__ __forceinline__ void accumulate(T (&acc)[TERMS], T a, T xv) {
 }
 
 // The parts' sums added in order: (acc[0] + acc[1]) + acc[2].
-template <int TERMS, typename T>
-__device__ __forceinline__ T total(const T (&acc)[TERMS]) {
-  T s = acc[0];
+template <int TERMS, typename Acc>
+__device__ __forceinline__ Acc total(const Acc (&acc)[TERMS]) {
+  Acc s = acc[0];
 #pragma unroll
   for (int k = 1; k < TERMS; ++k) s = s + acc[k];
   return s;
@@ -98,11 +100,11 @@ struct alignas(sizeof(T) * VEC) Pack {
 
 // Lane l's REP groups of VEC columns: c0 + (g * 32 + l) * VEC + i. Since
 // b % VEC == 0, a group lies in [0, b) whole or not at all.
-template <typename T, int TERMS, int VEC, int REP>
+template <typename T, typename Acc, int TERMS, int VEC, int REP>
 struct Lanes {
   int col[REP];
   bool live[REP];
-  T acc[REP][VEC][TERMS];
+  Acc acc[REP][VEC][TERMS];
 
   __device__ __forceinline__ Lanes(int c0, int lane, int b) {
 #pragma unroll
@@ -118,7 +120,7 @@ struct Lanes {
 #pragma unroll
       for (int i = 0; i < VEC; ++i)
 #pragma unroll
-        for (int k = 0; k < TERMS; ++k) acc[g][i][k] = T(0);
+        for (int k = 0; k < TERMS; ++k) acc[g][i][k] = Acc(0);
   }
   // writes the sums into y row yr and starts the next row's from 0
   __device__ __forceinline__ void flush(T* __restrict__ yr) {
@@ -127,7 +129,7 @@ struct Lanes {
       if (!live[g]) continue;
       Pack<T, VEC> out;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) out.v[i] = total<TERMS>(acc[g][i]);
+      for (int i = 0; i < VEC; ++i) out.v[i] = T(total<TERMS>(acc[g][i]));
       *reinterpret_cast<Pack<T, VEC>*>(yr + col[g]) = out;
     }
     clear();
@@ -135,13 +137,13 @@ struct Lanes {
 };
 
 // b >= 32: rows row0 .. row0 + count - 1, their entries as one stream.
-template <typename V, typename T, int TERMS, int VEC, int REP>
+template <typename V, typename T, typename Acc, int TERMS, int VEC, int REP>
 __device__ __forceinline__ void wide_rows(
     int row0, int count, int lane, int c0, const int* __restrict__ row_ptr,
     const int* __restrict__ cols, const int* __restrict__ val_off,
     const V* __restrict__ vals, const T* __restrict__ x, T* __restrict__ y,
     int b) {
-  Lanes<T, TERMS, VEC, REP> out(c0, lane, b);
+  Lanes<T, Acc, TERMS, VEC, REP> out(c0, lane, b);
   // lane i <= count holds row_ptr[row0 + i]
   const int my_rp = lane <= count ? row_ptr[row0 + lane] : 0;
   const int e_end = __shfl_sync(FULL, my_rp, count);
@@ -195,7 +197,7 @@ __device__ __forceinline__ void wide_rows(
 }
 
 // b < 32: the lanes stride over one row's entries, one column at a time.
-template <typename V, typename T, int TERMS>
+template <typename V, typename T, typename Acc, int TERMS>
 __device__ __forceinline__ void narrow_row(
     int r, int lane, const int* __restrict__ row_ptr,
     const int* __restrict__ cols, const int* __restrict__ val_off,
@@ -205,9 +207,9 @@ __device__ __forceinline__ void narrow_row(
   const int e_end = row_ptr[r + 1];
   T* yr = y + (size_t)r * b;
   for (int c = 0; c < b; ++c) {
-    T acc[TERMS];
+    Acc acc[TERMS];
 #pragma unroll
-    for (int k = 0; k < TERMS; ++k) acc[k] = T(0);
+    for (int k = 0; k < TERMS; ++k) acc[k] = Acc(0);
     for (int e = e_begin + lane; e < e_end; e += 32)
       accumulate<TERMS>(acc, T(widen(vals[val_off[e]])),
                         x[(size_t)cols[e] * b + c]);
@@ -216,12 +218,13 @@ __device__ __forceinline__ void narrow_row(
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         acc[k] += __shfl_xor_sync(FULL, acc[k], off);
-    if (lane == 0) yr[c] = total<TERMS>(acc);
+    if (lane == 0) yr[c] = T(total<TERMS>(acc));
   }
 }
 
-// V: the storage type of the values; T: the type of x, y and the sums.
-template <typename V, typename T, int TERMS, int VEC, int REP>
+// V: the storage type of the values; T: the type of x and y; Acc: the type
+// of the sums.
+template <typename V, typename T, typename Acc, int TERMS, int VEC, int REP>
 __global__ void __launch_bounds__(WARPS * 32) row_gather_kernel(
     const int* __restrict__ row_ptr, const int* __restrict__ cols,
     const int* __restrict__ val_off, const V* __restrict__ vals,
@@ -234,15 +237,16 @@ __global__ void __launch_bounds__(WARPS * 32) row_gather_kernel(
   const int count = min(ROWS_PER_WARP, n - row0);
   if (b < 32) {
     for (int r = row0; r < row0 + count; ++r)
-      narrow_row<V, T, TERMS>(r, lane, row_ptr, cols, val_off, vals, x, y, b);
+      narrow_row<V, T, Acc, TERMS>(r, lane, row_ptr, cols, val_off, vals, x,
+                                   y, b);
   } else {
-    wide_rows<V, T, TERMS, VEC, REP>(row0, count, lane,
+    wide_rows<V, T, Acc, TERMS, VEC, REP>(row0, count, lane,
                                      blockIdx.y * 32 * VEC * REP, row_ptr,
                                      cols, val_off, vals, x, y, b);
   }
 }
 
-template <typename V, typename T, int TERMS, int VEC, int REP>
+template <typename V, typename T, typename Acc, int TERMS, int VEC, int REP>
 int launch_grid(const void* row_ptr, const void* cols, const void* val_off,
                 const void* vals, const void* x, void* y, int n, int b,
                 void* stream) {
@@ -250,8 +254,8 @@ int launch_grid(const void* row_ptr, const void* cols, const void* val_off,
   const int slices = b < 32 ? 1 : (b + slice - 1) / slice;
   if (slices > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((n + ROWS_PER_CTA - 1) / ROWS_PER_CTA, slices);
-  row_gather_kernel<V, T, TERMS, VEC, REP><<<grid, WARPS * 32, 0,
-                                             (cudaStream_t)stream>>>(
+  row_gather_kernel<V, T, Acc, TERMS, VEC, REP><<<grid, WARPS * 32, 0,
+                                                  (cudaStream_t)stream>>>(
       (const int*)row_ptr, (const int*)cols, (const int*)val_off,
       (const V*)vals, (const T*)x, (T*)y, n, b);
   return (int)cudaGetLastError();
@@ -259,9 +263,10 @@ int launch_grid(const void* row_ptr, const void* cols, const void* val_off,
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 =
 // success): y (n, b) = A x (n, b) for A given by (row_ptr, cols, val_off,
-// vals); the caller checks that the index lies inside vals and x. 16-byte
-// loads where b and the pointers allow them, else two columns a lane.
-template <typename V, typename T, int TERMS>
+// vals), each sum accumulated in Acc; the caller checks that the index lies
+// inside vals and x. 16-byte loads where b and the pointers allow them, else
+// two columns a lane.
+template <typename V, typename T, int TERMS, typename Acc = T>
 int launch(const void* row_ptr, const void* cols, const void* val_off,
            const void* vals, const void* x, void* y, int n, int b,
            void* stream) {
@@ -269,10 +274,10 @@ int launch(const void* row_ptr, const void* cols, const void* val_off,
     return (int)cudaErrorInvalidValue;
   constexpr int VEC = 16 / sizeof(T);
   if (b % VEC == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0)
-    return launch_grid<V, T, TERMS, VEC, 1>(row_ptr, cols, val_off, vals, x,
-                                             y, n, b, stream);
-  return launch_grid<V, T, TERMS, 1, 2>(row_ptr, cols, val_off, vals, x, y, n,
-                                         b, stream);
+    return launch_grid<V, T, Acc, TERMS, VEC, 1>(row_ptr, cols, val_off, vals,
+                                                  x, y, n, b, stream);
+  return launch_grid<V, T, Acc, TERMS, 1, 2>(row_ptr, cols, val_off, vals, x,
+                                              y, n, b, stream);
 }
 
 }  // namespace row_gather

@@ -4,13 +4,14 @@
     python -m krylov_robustness_torch.experiments unweighted --mode break
     python -m krylov_robustness_torch.experiments --cpu budget --mode break \\
         --datasets Anaheim Rome
+    python -m krylov_robustness_torch.experiments weighted --fun sinh --hessian
 
 By default it runs on ``cuda:0`` in float32 with TF32 off, and raises on a
 machine without CUDA; ``--cpu`` runs on the CPU in float64 (the
 golden-result configuration, matching the reference's MATLAB doubles). The
 datasets are read from ``$KRYLOV_ROBUSTNESS_DATA`` (``graphs/io.py``). The
-subcommands ``weighted``, ``trace``, ``parity`` and ``scaling`` are not
-ported yet and raise ``NotImplementedError``.
+subcommands ``trace``, ``parity`` and ``scaling`` are not ported yet and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,10 +23,9 @@ import torch
 
 # subcommands of the JAX CLI still to port, with their ROADMAP.md item
 NOT_PORTED = {
-    "weighted": "Queue 1 item 7 (continuous / weighted)",
-    "trace": "Queue 1 item 9 (experiments/trace_bench.py)",
-    "parity": "Queue 1 item 9 (experiments/parity.py)",
-    "scaling": "Queue 1 item 8 (distributed layer)",
+    "trace": "Queue 1 item 3 (experiments/trace_bench.py)",
+    "parity": "Queue 1 item 3 (experiments/parity.py)",
+    "scaling": "Queue 1 item 4 (distributed layer)",
 }
 
 
@@ -97,6 +97,15 @@ def main(argv=None):
                    help="regenerate sweeps even if their rows exist "
                    "(keyed in-place replace)")
 
+    w = sub.add_parser("weighted", help="Tables 5-6 protocol (weighted IPM)")
+    w.add_argument("--fun", choices=["exp", "sinh", "cosh"], default="exp")
+    w.add_argument("--hessian", action="store_true",
+                   help="exact Krylov Hessian instead of L-BFGS approximation")
+    w.add_argument("--countries", nargs="*", default=None)
+    w.add_argument("--methods", nargs="*",
+                   default=["tuning", "rewire", "add"])
+    w.add_argument("--maxiter", type=int, default=200)
+
     for name, item in NOT_PORTED.items():
         sub.add_parser(name, help=f"not ported yet (ROADMAP {item})")
 
@@ -124,6 +133,15 @@ def main(argv=None):
                         collections=tuple(args.collections),
                         datasets=args.datasets or None, dtype=dtype,
                         gkb_only=args.gkb_only, force=args.force, device=dev)
+    elif args.cmd == "weighted":
+        from ..utils.config import WeightedConfig
+        from .weighted import run_paper_suite as run_weighted
+
+        cfg = WeightedConfig(fun=args.fun, use_hessian=args.hessian,
+                             maxiter=args.maxiter,
+                             methods=tuple(args.methods))
+        run_weighted(cfg, out_dir=args.out_dir, countries=args.countries,
+                     dtype=dtype, device=dev)
     else:
         from .unweighted import run_budget_sweep
 

@@ -45,3 +45,9 @@ def get_fun(f) -> ScalarFun:
 
 def derivative_of(f) -> ScalarFun:
     return _REGISTRY[get_fun(f).derivative]
+
+
+def value_at(f, x: float) -> float:
+    """f(x) of a Python float, evaluated in f64 on the host (the registry's
+    functions take tensors)."""
+    return float(get_fun(f).fn(torch.tensor(float(x), dtype=torch.float64)))

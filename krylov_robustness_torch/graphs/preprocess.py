@@ -1,7 +1,8 @@
 """Graph preprocessing of the paper experiments — carried over from
 ``krylov_robustness_tpu/graphs/preprocess.py`` (reference protocol
 ``Tests/test_unweighted_break.m:45-53``): symmetrize + binarize
-``spones(A+A')``, strip the diagonal, keep the largest connected component.
+``spones(A+A')``, strip the diagonal, keep the largest connected component;
+the weighted protocol symmetrizes and normalizes instead.
 """
 
 from __future__ import annotations
@@ -37,3 +38,22 @@ def preprocess_unweighted(A: sp.spmatrix) -> sp.csr_matrix:
     idx = np.flatnonzero(largest_connected_component(S))
     # row-then-column CSR/CSC slicing (np.ix_ is pathological at 100k nodes)
     return S[idx, :].tocsc()[:, idx].tocsr()
+
+
+def preprocess_weighted(A: np.ndarray) -> np.ndarray:
+    """Weighted protocol (``Tests/test_weighted_exp_lbfgs.m:33-40``):
+    symmetrize, zero diagonal, normalize to max weight 1."""
+    A = np.asarray(A, dtype=np.float64)
+    A = (A + A.T) / 2.0
+    np.fill_diagonal(A, 0.0)
+    mx = np.abs(A).max()
+    if mx > 0:
+        A = A / mx
+    return A
+
+
+def edges_lower(A: sp.spmatrix) -> np.ndarray:
+    """Existing edges as (e, 2) with i > j (``tril(A,-1)`` convention of
+    ``functions/find_top_edges.m:22``)."""
+    C = sp.coo_matrix(sp.tril(A, -1))
+    return np.stack([C.row, C.col], axis=1)

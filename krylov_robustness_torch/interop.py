@@ -8,11 +8,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .krylov.arnoldi import ArnoldiState
 from .krylov.lanczos import LanczosState
 from .ops.banded_spmm import BandedEllOperator
 from .ops.bsr import BsrOperator
 from .ops.bsr_super import SuperBsrOperator
 from .ops.sparse import CooMatrix
+from .optimize.continuous import ContinuousProblem
 from .utils.device import float_dtype, resolve_device
 
 
@@ -93,3 +95,24 @@ def lanczos_state_from_arrays(v_prev, v_cur, alive, device) -> LanczosState:
                         v_cur=torch.as_tensor(np.array(v_cur), device=dev),
                         alive=torch.as_tensor(np.array(alive, bool),
                                               device=dev))
+
+
+def arnoldi_state_from_arrays(V, step, alive, device) -> ArnoldiState:
+    """``ArnoldiState`` (the padded (batch, n, max_cols) basis, the completed
+    step count, the live mask) from the JAX carry. The port writes the basis
+    in place, so it gets a copy of ``V``."""
+    dev = resolve_device(device)
+    return ArnoldiState(V=torch.as_tensor(np.array(V), device=dev),
+                        step=int(np.asarray(step)),
+                        alive=torch.as_tensor(np.array(alive, bool),
+                                              device=dev))
+
+
+def continuous_problem_from_arrays(Omega, dfA, lb, ub,
+                                   budget) -> ContinuousProblem:
+    """``ContinuousProblem`` from the JAX problem's fields (host arrays)."""
+    return ContinuousProblem(Omega=np.array(Omega, np.int64),
+                             dfA=np.array(dfA, np.float64),
+                             lb=np.array(lb, np.float64),
+                             ub=np.array(ub, np.float64),
+                             budget=float(budget))

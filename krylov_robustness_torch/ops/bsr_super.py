@@ -19,7 +19,8 @@ computed.
   gathered f32 x value is split in registers into ``terms`` bf16 parts, each
   part's products summed in f32 on their own.
 * K2 (``tile_spmm_full``) replaces ``_kernel_f32`` — mode ``f32`` (f32 or f64
-  storage): one FFMA/DFMA an entry in full f32 or f64, never TF32.
+  storage): one DFMA an entry into an f64 sum, never TF32; in f32 each sum is
+  rounded to f32 once, at the store.
 
 Beside each kernel is its plain torch version (a batched tile product plus
 ``index_add_`` by super-row). :meth:`SuperBsrOperator.matmul` runs the plain
@@ -213,7 +214,8 @@ def tile_spmm_full(row_ptr, cols, val_off, atiles, x):
     """K2: y (n, b) = A @ x for x (n, b) in f32 or f64, A's values gathered
     out of the tiles ``atiles`` (in x's dtype) through the int32 row index
     (``row_ptr`` of n + 1, ``cols`` and ``val_off`` of nnz; see
-    :mod:`.row_gather`), one FFMA/DFMA an entry."""
+    :mod:`.row_gather`), one DFMA an entry into an f64 sum (in f32 rounded
+    once at the store)."""
     global launches_f32
     if x.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"K2 takes float32 or float64, got {x.dtype}")

@@ -5,7 +5,8 @@ Run from the root of a checkout (the graphs come from
 ``chip_smoke.py``)::
 
     python3 -m krylov_robustness_torch.tools.probe [solvers] [profile] \\
-        [budget] [gather] [--out DIR] [--variants NAME=VALUE[,...] ...]
+        [budget] [gather] [weighted] [--out DIR] \\
+        [--variants NAME=VALUE[,...] ...]
 
 ``solvers``: the spectra solver of the f32 fused lane on the hub graph. One
 fused block (k = 10) with the Sturm bisection (``eigvalsh_banded``, the
@@ -27,13 +28,22 @@ graph (K3 in f32 and f64, COO per-step and fused), tables to
 ``gather``: the four kernels that share the row gather of
 ``csrc/row_gather.cuh`` (K1, K2, K3 at b ≥ 32, K4) at the smoke's phase-3
 shapes, built into ``DIR/gather/<variant>/`` from the checkout's sources
-with the header's constants as they are and as each ``--variants`` entry
-sets them (``UNROLL=8``, ``ROWS_PER_WARP=8,WARPS=2``), each held against the
-plain version and timed with CUDA events in turns (every variant, then again
-in reverse order; the better time counts) beside cuSPARSE. Then K1 on the
+with their constants and types as they are and as each ``--variants`` entry
+sets them (``UNROLL=8``, ``ROWS_PER_WARP=8,WARPS=2``, ``K2F32Sum=float``),
+each held against the plain version and timed with CUDA events in turns
+(every variant, then again in reverse order; the better time counts) beside
+cuSPARSE; then each variant's K2 f32 error on the hub graph at b = 500 on
+the smoke's second x. Then K1 on the
 hub graph with its values read from a compact copy in CSR order
 (``val_off[e] = e``) in place of the tiles: what the scattered value gather
 costs.
+
+``weighted``: ``torch.profiler`` over one ``fun_and_grad`` of the smoke's
+Vermont-scale rewiring problem (``chip_smoke.vermont_problem``, f = sinh,
+COO f64) at x = 0.3·ub, after one warm-up call: wall, device busy, and each
+stage's host time and its span on the device timeline (the Arnoldi steps,
+their COO products and CholQR, every ``eigh``, the Lanczos objective and its
+products), table to ``DIR/weighted_fun_and_grad.txt``.
 """
 
 from __future__ import annotations
@@ -225,17 +235,24 @@ def _gather_libs(out: Path, variants) -> dict:
         d = out / "gather" / name.replace("=", "").replace(",", "_")
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
-        header = (csrc / "row_gather.cuh").read_text()
+        files = {f: (csrc / f).read_text() for f in
+                 ("row_gather.cuh", *(f"{src}.cu" for src in GATHER_ENTRIES))}
         for setting in () if name == "as-is" else name.split(","):
             key, value = setting.split("=")
-            header, hits = re.subn(rf"constexpr int {key} = \d+;",
-                                   f"constexpr int {key} = {int(value)};",
-                                   header)
+            hits = 0
+            for f, text in files.items():
+                for pattern, new in ((rf"constexpr int {key} = \d+;",
+                                      f"constexpr int {key} = {value};"),
+                                     (rf"using {key} = \w+;",
+                                      f"using {key} = {value};")):
+                    text, k = re.subn(pattern, new, text)
+                    hits += k
+                files[f] = text
             if hits != 1:
-                raise ValueError(f"row_gather.cuh has no constant {key}")
-        (d / "row_gather.cuh").write_text(header)
+                raise ValueError(f"the sources have no constant or type {key}")
+        for f, text in files.items():
+            (d / f).write_text(text)
         for src in GATHER_ENTRIES:
-            shutil.copy(csrc / f"{src}.cu", d)
             builds.append((name, src, d / f"lib{src}.so", subprocess.Popen(
                 [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
                  str(d / f"lib{src}.so"), str(d / f"{src}.cu")],
@@ -284,6 +301,8 @@ def probe_gather(smoke, dev, out: Path, variants) -> None:
             A, dtype=f64, device=dev, mode="f32"), (512, 500)),
         ("hub", "K2", "f32"): (lambda A: SuperBsrOperator(
             A, dtype=f32, device=dev, mode="f32"), (500,)),
+        ("road", "K2", "f32"): (lambda A: SuperBsrOperator(
+            A, dtype=f32, device=dev, mode="f32"), (512,)),
         ("road", "K3", "f32"): (lambda A: BandedEllOperator(
             A, dtype=f32, device=dev), (100, 512)),
         ("road", "K3", "f64"): (lambda A: BandedEllOperator(
@@ -317,6 +336,13 @@ def probe_gather(smoke, dev, out: Path, variants) -> None:
                                f"error {code}")
         return y
 
+    def held(kernel, op, x):
+        """variant → max|kernel − plain| / max|plain| on x."""
+        yp = op.matmul_plain(x)
+        scale = float(yp.abs().max())
+        return {name: float((launch(name, kernel, op, x) - yp).abs().max())
+                / scale for name in libs}
+
     # x as the smoke's phase 3 draws it for each graph, so that each case is
     # held on the inputs the smoke holds it on
     x64 = {name: np.random.default_rng(1).standard_normal(
@@ -328,11 +354,8 @@ def probe_gather(smoke, dev, out: Path, variants) -> None:
         for b in widths:
             x = torch.as_tensor(x64[graph][:, :b], device=dev,
                                 dtype=f64 if label == "f64" else f32)
-            yp = op.matmul_plain(x)
-            scale = float(yp.abs().max())
-            for name in libs:
-                err = float((launch(name, kernel, op, x) - yp).abs().max()
-                            ) / scale
+            errs = held(kernel, op, x)
+            for name, err in errs.items():
                 smoke.check(err <= smoke.GATES[label],
                             f"gather {name} {graph} {kernel} {label} b={b}: "
                             f"{err:.3e}")
@@ -344,9 +367,22 @@ def probe_gather(smoke, dev, out: Path, variants) -> None:
             lib_ms = smoke.library_ms(A, x)
             print(f"[gather] {graph} {kernel} {label} b={b}: cusparse "
                   f"{lib_ms:.4f} ms; " + "; ".join(
-                      f"{name} {min(t):.4f} ms" for name, t in times.items()))
+                      f"{name} {min(t):.4f} ms (err {errs[name]:.3e})"
+                      for name, t in times.items()))
         del op
         torch.cuda.empty_cache()
+    # hub K2 f32 at b = 500 on the smoke's second draw of x, where a
+    # sequential f32 sum over a hub row sat at the gate: every variant's
+    # error, gated for the sources as they are
+    op = cases["hub", "K2", "f32"][0](graphs["hub"])
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal((op.n, 500)),
+                        device=dev, dtype=f32)
+    errs = held("K2", op, x)
+    smoke.check(errs["as-is"] <= smoke.GATES["f32"],
+                f"gather hub K2 f32 b=500 second x: {errs['as-is']:.3e}")
+    print("[gather] hub K2 f32 b=500 second x (seed 2): " + "; ".join(
+        f"{name} err {err:.3e}" for name, err in errs.items()))
+    del op
     op = cases["hub", "K1", "bf16x2"][0](graphs["hub"])
     x = torch.as_tensor(x64["hub"][:, :500], device=dev, dtype=f32)
     compact = (torch.arange(op.nnz, dtype=torch.int32, device=dev),
@@ -365,16 +401,91 @@ def probe_gather(smoke, dev, out: Path, variants) -> None:
           f"{t['compact']:.4f} ms")
 
 
+def probe_weighted(smoke, dev, out: Path) -> None:
+    import contextlib
+    from unittest import mock
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from ..funm import dense
+    from ..krylov import arnoldi, lanczos
+    from ..optimize import continuous
+
+    out.mkdir(parents=True, exist_ok=True)
+    A, M, nrm, prob, _ = smoke.vermont_problem(dev, road_graph())
+    x = 0.3 * prob.ub
+    smoke.check(np.sum(x) <= prob.budget, "weighted probe: x over budget")
+
+    def call():
+        return continuous.fun_and_grad(x, M, prob.Omega, prob.dfA,
+                                       fun="sinh", tol=1e-6, nrmA=nrm)
+
+    # stage name → (module, function) wrapped in a profiler range
+    stages = {"fun_update": (continuous, "fun_update"),
+              "arnoldi_step": (arnoldi, "arnoldi_step"),
+              "arnoldi_spmm": (arnoldi, "_spmm_batch"),
+              "arnoldi_cholqr": (arnoldi, "_chol_qr"),
+              "eigh": (dense, "eigh_or_nan"),
+              "objective_trace_update": (continuous,
+                                         "trace_fun_update_batched"),
+              "lanczos_spmm": (lanczos, "_spmm_nb")}
+
+    def ranged(name, fn):
+        def run(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return run
+
+    call()
+    torch.cuda.synchronize()
+    with contextlib.ExitStack() as stack:
+        for name, (mod, fn) in stages.items():
+            stack.enter_context(mock.patch.object(
+                mod, fn, ranged(name, getattr(mod, fn))))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    # the stages' ranges appear on the device timeline too, as user
+    # annotations: not device work
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation)
+    table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=40)
+    (out / "weighted_fun_and_grad.txt").write_text(table)
+    print(f"[weighted] fun_and_grad n={M.n} ({len(prob.Omega)} edges over "
+          f"{len(np.unique(prob.Omega))} nodes): wall {wall * 1e3:.1f} ms, "
+          f"device busy {busy_us / 1e3:.1f} ms "
+          f"({100 * busy_us / 1e3 / (wall * 1e3):.1f}% of wall)")
+    # each stage: its host range (CPU time inside it) and its range on the
+    # device timeline (from its first kernel's start to its last's end)
+    for ev in prof.key_averages():
+        if ev.key in stages:
+            dev_us = getattr(ev, "device_time_total",
+                             getattr(ev, "cuda_time_total", 0.0))
+            side = (f"host {ev.cpu_time_total / 1e3:.1f} ms"
+                    if ev.cpu_time_total else
+                    f"device span {dev_us / 1e3:.1f} ms")
+            print(f"[weighted] {ev.key}: {ev.count} calls, {side}")
+    print("\n".join(table.splitlines()[:16]))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probes", nargs="*",
-                    choices=["solvers", "profile", "budget", "gather"],
-                    help="default: all four")
+                    choices=["solvers", "profile", "budget", "gather",
+                             "weighted"],
+                    help="default: all five")
     ap.add_argument("--out", type=Path, default=Path("build/probe"))
     ap.add_argument("--variants", nargs="*", default=GATHER_VARIANTS,
                     help="row-gather constants for the gather probe")
     args = ap.parse_args(argv)
-    args.probes = args.probes or ["solvers", "profile", "budget", "gather"]
+    args.probes = args.probes or ["solvers", "profile", "budget", "gather",
+                                  "weighted"]
     if not torch.cuda.is_available():
         print("probe: CUDA is not available", file=sys.stderr)
         return 2
@@ -391,6 +502,8 @@ def main(argv=None) -> int:
         probe_budget(smoke, dev, args.out)
     if "gather" in args.probes:
         probe_gather(smoke, dev, args.out, args.variants)
+    if "weighted" in args.probes:
+        probe_weighted(smoke, dev, args.out)
     return 0
 
 

@@ -32,6 +32,12 @@ def test_every_module_imports_without_jax():
             "krylov_robustness_torch.ops.row_gather",
             "krylov_robustness_torch.experiments.__main__",
             "krylov_robustness_torch.experiments.unweighted",
+            "krylov_robustness_torch.experiments.weighted",
+            "krylov_robustness_torch.krylov.arnoldi",
+            "krylov_robustness_torch.optimize.continuous",
+            "krylov_robustness_torch.updates.entries",
+            "krylov_robustness_torch.updates.frechet",
+            "krylov_robustness_torch.updates.fun_update",
             "krylov_robustness_torch.baselines.miobi",
             "krylov_robustness_torch.baselines.eigenv",
             "krylov_robustness_torch.funm.expmv",
