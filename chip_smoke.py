@@ -50,15 +50,35 @@ Phases, each of which raises on failure (exit code 1):
    trace(sinh(A)) (``scripts/config5_sharded_sinh_rewire.py``) on the road
    graph, its objective held against an independent evaluation and two
    gradient coordinates against central differences;
-10. replay: copies of the inputs of the last launch of each kernel at each
-   shape of phases 4-8 (outside the bench's timed lanes), rerun through the
-   kernel and its plain version (for K1, K2 and K4 over the tiles or blocks
-   that their row index implies, for K3 over its ELL tables).
+10. sharded path (the distributed layer, ``parallel/``): a 1-rank NCCL
+   process group on the card runs the multi-rank dry run
+   (``parallel/selfcheck.py::dryrun``, the JAX package's
+   ``dryrun_multichip``) and, on the road graph, ``sharded_bsr`` break in
+   f32 (K1, k = 3, Q = 250) and f64 (K2, k = 2) against the single-card
+   ``bsr`` backend and ``sharded`` (COO) f64 against ``coo``; then 2 gloo
+   ranks spawned on the one card (kernels built before): each rank's row
+   block of ``BsrRowShardedMatrix.spmm_sharded`` at b = 512 in bf16x2 (K1)
+   and f64 (K2) must launch its kernel once per pass (diagonal tiles on the
+   local x while the all-gather is in flight, the others on the gathered
+   x) and agree with scipy; each pass is held against its plain version and
+   timed beside its bound; ``RowShardedMatrix`` coo and ell against scipy;
+   ``sharded_bsr`` break k = 3 Q = 250 f32 picks as the 1-rank run's;
+11. scaling: ``measure_sharded_spmm`` at D = 1 on the road graph (coo and
+   ell, b = 8 and 512) — one card shows a rate, not scaling;
+12. surface: the ``trace`` bench (f64) on the stand-ins written as .mat and
+   a small one below the dense cutoff, the ``expmv`` parity row on that one
+   (≤ 1e-6), ``EllMatrix @ x`` on the card against scipy;
+13. replay: copies of the inputs of the last launch of each kernel at each
+   shape of phases 4-8 and 10 (outside the bench's timed lanes), rerun
+   through the kernel and its plain version (for K1, K2 and K4 over the
+   tiles or blocks that their row index implies, for K3 over its ELL
+   tables).
 
-Each path (4-5, 6, 7, 8, 9) runs with every launch count set to 0 just
-before it and read just after. The line before the last is a JSON object with one
-entry per kernel (its count on the path that runs it, errors and times of
-phase 3); the last line is ``{"ok": true, "device": {...}}``. Without CUDA
+Each path (4-5, 6, 7, 8, 9, 10) runs with every launch count set to 0 just
+before it and read just after; the 2-rank half of path 10 runs in its own
+processes, which check and report their own counts. The line before the
+last is a JSON object with one entry per kernel (its count on the path that
+runs it, errors and times of phase 3); the last line is ``{"ok": true, "device": {...}}``. Without CUDA
 the script exits with code 2 and prints no result. Imports nothing of JAX.
 """
 
@@ -75,6 +95,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
@@ -1283,6 +1304,198 @@ def phase_weighted(dev, road, root: Path) -> None:
     check(seen == {"CooMatrix"}, f"weighted path operators {sorted(seen)}")
 
 
+# -- sharded path (the distributed layer) ------------------------------------
+def sharded_one_rank(dev, A, root: Path) -> dict:
+    """A 1-rank NCCL process group on the card: the multi-rank dry run, then
+    the sharded backends on the road graph against the single-card ones —
+    sharded_bsr in f32 (K1) and f64 (K2) against bsr, sharded (COO) f64
+    against coo. Returns the f32 picks and step times."""
+    import torch.distributed as dist
+
+    from krylov_robustness_torch.ops import bsr_super
+    from krylov_robustness_torch.optimize.greedy import greedy_krylov
+    from krylov_robustness_torch.parallel import selfcheck
+    from krylov_robustness_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{root}/nccl_store",
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        t0 = time.perf_counter()
+        dry = selfcheck.dryrun(dev)
+        print(f"[sharded] 1 rank (nccl): dry run on the n={dry['n']} example "
+              f"graph, mesh {dry['mesh']}: sharded/sharded_bsr picks "
+              f"{dry['edges'].tolist()} identical, operators "
+              f"{dry['operators']}, fused steps {dry['fused']}, "
+              f"rob_variation {dry['rob_variation']:.6e}, "
+              f"{time.perf_counter() - t0:.1f} s")
+        mesh = make_mesh(device=dev)
+        c, _, sigma, tol = protocol(A, torch.float32)
+        kw = dict(order="min", mode="break", mesh=mesh, fused_steps=0,
+                  device=dev)
+        before = bsr_super.launches_bf16
+        rs = greedy_krylov(A, 3, 250, c, tol=tol, dtype=torch.float32,
+                           backend="sharded_bsr", shift=sigma, **kw)
+        grew = bsr_super.launches_bf16 - before
+        rb = greedy_krylov(A, 3, 250, c, tol=tol, dtype=torch.float32,
+                           backend="bsr", shift=sigma, **kw)
+        print(f"[sharded] 1 rank road break k=3 Q=250 f32: {rs.operator}, "
+              f"K1 launches +{grew}, per-step ms {step_ms(rs)}; bsr "
+              f"{rb.operator} per-step ms {step_ms(rb)}")
+        check(rs.operator == "BsrRowShardedMatrix(bf16x2)",
+              f"sharded f32 ran on {rs.operator}")
+        check(grew > 0, "sharded f32: K1 was not launched")
+        same_picks_or_floor("sharded 1-rank K1 vs bsr", rs, rb, tol)
+        c64, _, sigma64, tol64 = protocol(A, torch.float64)
+        kw64 = dict(kw, tol=tol64, dtype=torch.float64, shift=sigma64)
+        before = bsr_super.launches_f32
+        rs64 = greedy_krylov(A, 2, 250, c64, backend="sharded_bsr", **kw64)
+        grew = bsr_super.launches_f32 - before
+        rb64 = greedy_krylov(A, 2, 250, c64, backend="bsr", **kw64)
+        gap = abs(rs64.rob_variation - rb64.rob_variation) / abs(
+            rb64.rob_variation)
+        print(f"[sharded] 1 rank road break k=2 f64: {rs64.operator}, K2 "
+              f"launches +{grew}, per-step ms {step_ms(rs64)}; bsr per-step "
+              f"ms {step_ms(rb64)}; rob_variation {rs64.rob_variation!r} vs "
+              f"{rb64.rob_variation!r} (rel {gap:.3e}, gate 1e-10)")
+        check(grew > 0, "sharded f64: K2 was not launched")
+        check(np.array_equal(rs64.edges, rb64.edges),
+              f"sharded f64 picks {rs64.edges.tolist()} != bsr "
+              f"{rb64.edges.tolist()}")
+        check(gap <= 1e-10, f"sharded f64 rob_variation off by {gap:.3e}")
+        rsc = greedy_krylov(A, 2, 250, c64, backend="sharded", **kw64)
+        rc = greedy_krylov(A, 2, 250, c64, backend="coo", **kw64)
+        print(f"[sharded] 1 rank road break k=2 f64 sharded COO: "
+              f"{rsc.operator} per-step ms {step_ms(rsc)}; coo per-step ms "
+              f"{step_ms(rc)}")
+        check(np.array_equal(rsc.edges, rc.edges),
+              f"sharded COO picks {rsc.edges.tolist()} != coo "
+              f"{rc.edges.tolist()}")
+    finally:
+        dist.destroy_process_group()
+    return {"f32": rs, "c": c, "tol": tol, "sigma": sigma}
+
+
+def sharded_two_ranks(A, root: Path, card: str, one: dict, stats: dict):
+    """Two gloo ranks spawned on the one card (NCCL takes one rank a GPU;
+    gloo stages CUDA tensors through the host). The kernels were built
+    before, so no rank runs nvcc. Each rank's checks are
+    ``parallel/selfcheck.py::card_checks``; here both ranks' launches,
+    products and picks are held, and the per-pass times printed beside the
+    single-card kernel's at the same b."""
+    from krylov_robustness_torch.parallel import selfcheck
+
+    t0 = time.perf_counter()
+    outs = selfcheck.launch(
+        "card_checks", 2, root, timeout=600, device_kind="cuda", A=A, b=512,
+        seed=3, gates=GATES,
+        greedy_args=(3, 250, one["c"], one["tol"], one["sigma"]))
+    for rank, out in enumerate(outs):
+        for label, prod in out["products"].items():
+            passes = "; ".join(
+                f"{w} pass ({p['entries']} entries, x {p['x_rows']} rows "
+                f"of which {p['x_read']} read, y {p['y_rows']}): kernel "
+                f"{p['ms']:.4f} ms, plain {p['plain_ms']:.4f} ms, bound {p['bound_ms']:.4f} ms "
+                f"({p['bound_by']}), kernel-plain {p['max_abs_err']:.3e}"
+                for w, p in prod["passes"].items())
+            print(f"[sharded] 2 ranks (gloo, one card) rank {rank} rows "
+                  f"{prod['rows']} {label} b=512 on {card}: launches "
+                  f"{prod['launches']} per product, rel err vs scipy "
+                  f"{prod['err']:.3e}; {passes}; whole sharded product "
+                  f"(gather included) {prod['sharded_ms']:.4f} ms")
+        g = out["greedy"]
+        print(f"[sharded] 2 ranks rank {rank}: coo/ell rel err "
+              f"{out['errors']}; sharded_bsr break k=3 Q=250 f32 "
+              f"{g['operator']} picks {g['edges'].tolist()} launches "
+              f"{g['launches']} per-step ms "
+              f"{[round(float(t) * 1e3, 2) for t in g['per_step_time']]} "
+              f"wall {g['wall']:.1f} s")
+        check(g["launches"]["K1"] > 0, f"rank {rank}: greedy K1 not "
+              f"launched")
+    for label, single in (("bf16x2", stats["road", "bf16x2", 512]),
+                          ("f64", stats["road", "f64", 512])):
+        print(f"[sharded] single-card {label} b=512 on {card}: kernel "
+              f"{single['ms']:.4f} ms, bound {single['bound_ms']:.4f} ms "
+              f"({single['bound_by']})")
+    ra, rb = (SimpleNamespace(**o["greedy"]) for o in outs)
+    check(np.array_equal(ra.edges, rb.edges), "the two ranks' picks differ")
+    same_picks_or_floor("sharded 2 ranks vs 1 rank", ra, one["f32"],
+                        one["tol"])
+    print(f"[sharded] 2-rank phase wall {time.perf_counter() - t0:.1f} s")
+
+
+def sharded_path(dev, A, root: Path, card: str, stats: dict) -> None:
+    sharded_two_ranks(A, root, card, sharded_one_rank(dev, A, root), stats)
+
+
+def phase_scaling(dev, A, card: str) -> None:
+    """``measure_sharded_spmm`` at D = 1 on the road graph (one card holds
+    one rank: a rate, not scaling), both layouts, b = 8 and 512, f32."""
+    from krylov_robustness_torch.experiments.scaling import (
+        measure_sharded_spmm,
+    )
+
+    t0 = time.perf_counter()
+    for layout in ("coo", "ell"):
+        for b in (8, 512):
+            (dt, rate), = measure_sharded_spmm(
+                A, mesh_sizes=[1], b=b, iters=20, dtype=torch.float32,
+                layout=layout, device=dev).values()
+            print(f"[scaling] road {layout} f32 b={b} D=1 on {card}: "
+                  f"{dt * 1e3:.4f} ms a product, {rate / 1e9:.3f} Gnnz·b/s")
+            check(np.isfinite(rate) and rate > 0, "scaling: no rate")
+    print(f"[scaling] wall {time.perf_counter() - t0:.1f} s")
+
+
+# the trace estimator's tol (1e-4) bounds the change between two of its
+# iterations, not its error: on the CPU test graphs both packages missed the
+# dense trace by up to ~4e-3 (tests/test_torch_trace_parity.py)
+TRACE_GATE = 1e-2
+
+
+def phase_surface(dev, graphs, root: Path) -> None:
+    """The trace bench (f64 on the card) on the stand-ins written as .mat
+    by the earlier paths and on a small one below the dense cutoff; the
+    expmv parity row on that one; ``EllMatrix @ x`` against scipy."""
+    from krylov_robustness_torch.experiments import parity, trace_bench
+    from krylov_robustness_torch.graphs.preprocess import (
+        preprocess_unweighted,
+    )
+    from krylov_robustness_torch.ops.sparse import EllMatrix
+    from krylov_robustness_torch.parallel.selfcheck import example_graph
+
+    t0 = time.perf_counter()
+    small = example_graph(600, seed=3)
+    write_mat(root, "Misc", "small_standin", small)
+    out, _ = trace_bench.run(
+        datasets=[("transport", "road_standin"), ("misc", "hub_standin"),
+                  ("misc", "small_standin")], out_dir=root / "out_trace",
+        verbose=False, device=dev)
+    for label, (tr, dt, rel) in out.items():
+        print(f"[surface] trace_exp {label} f64: trace {tr:.10e} in "
+              f"{dt:.2f} s, rel err vs dense {rel}")
+        check(np.isfinite(tr) and tr > 0, f"trace {label}: {tr}")
+        check(isinstance(rel, str) or rel <= TRACE_GATE,
+              f"trace {label}: rel err {rel} over {TRACE_GATE}")
+    check(not isinstance(out["small_standin"][2], str),
+          "trace: the small stand-in was not held against the dense trace")
+    row = parity.expmv_parity_row("small_standin",
+                                  preprocess_unweighted(small), device=dev)
+    print(f"[surface] expmv parity small_standin n={row['n']} "
+          f"cols={row['cols']}: max rel err {row['max_rel_err']:.3e} "
+          f"(gate 1e-6)")
+    check(row["max_rel_err"] <= 1e-6, "expmv parity over 1e-6")
+    A = graphs["road"]
+    x = np.random.default_rng(4).standard_normal((A.shape[0], 16))
+    E = EllMatrix.from_scipy(A, dtype=torch.float64, device=dev)
+    y = (E @ torch.as_tensor(x, device=dev)).cpu().numpy()
+    ref = A @ x
+    err = float(np.abs(y - ref).max() / np.abs(ref).max())
+    print(f"[surface] EllMatrix road K={E.slots} f64 b=16: rel err vs "
+          f"scipy {err:.3e} (gate 1e-12); wall "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(err <= 1e-12, f"EllMatrix error {err:.3e}")
+
+
 def launch_counts() -> dict:
     from krylov_robustness_torch.ops import banded_spmm, bsr, bsr_super
 
@@ -1327,6 +1540,12 @@ def run(dev, root: Path) -> int:
         benched = drive("bench", phase_bench, card, capture)
         weighted = drive("weighted", phase_weighted, dev, graphs["road"],
                          root)
+        sharded = drive("sharded", sharded_path, dev, graphs["road"], root,
+                        card, stats)
+    phase_scaling(dev, graphs["road"], card)
+    phase_surface(dev, graphs, root)
+    check(sharded["K1"] and sharded["K2"],
+          f"sharded path: a kernel was not launched: {sharded}")
     check(greedy["K1"] and greedy["K2"],
           f"greedy path: a kernel was not launched: {greedy}")
     check(budget["K3"] > 0, f"budget path: K3 was not launched: {budget}")

@@ -5,10 +5,9 @@ tree and public functions, imports ``torch``, numpy and scipy, and never JAX.
 Every public entry that creates tensors takes an explicit ``device``; nothing
 picks one by itself.
 
-Ported so far (the greedy edge break/make main path, the continuous
-optimizer and the paper driver):
+Layer map (every module of the JAX package has its counterpart):
 
-  ops          ``CooMatrix`` + plain gather/``index_add_`` SpMM, the
+  ops          ``CooMatrix``/``EllMatrix`` + plain gather SpMMs, the
                super-tile block-sparse operator and the banded-ELL operator
                with their hand-written Hopper kernels (``csrc/``, built by
                ``ops/cuda_build.py``), RCM helpers, the Sturm banded
@@ -25,8 +24,11 @@ optimizer and the paper driver):
   graphs       dataset loaders, preprocessing, candidate selection,
                centralities
   baselines    MIOBI and EIGENV
-  experiments  the Tables 2-3, Figures 1-4 and Tables 5-6 drivers and
-               their CLI
+  parallel     meshes of ``torch.distributed`` ranks, row-sharded operators
+               (COO/ELL local products, and K1/K2 launched per shard over
+               the super-tile packing, with the all-gather overlapped)
+  experiments  the Tables 2-3, Figures 1-4 and Tables 5-6 drivers, the
+               trace, parity and scaling benches, and their CLI
                (``python -m krylov_robustness_torch.experiments``)
   utils        device resolution, finite checks, configs, result logs,
                checkpoints
@@ -34,3 +36,5 @@ optimizer and the paper driver):
 """
 
 __version__ = "0.1.0"
+
+from .ops.sparse import CooMatrix, EllMatrix, spmm  # noqa: E402,F401

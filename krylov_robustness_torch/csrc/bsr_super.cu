@@ -54,7 +54,11 @@
 // (PERF.md).
 //
 // Every entry point launches on the given stream, allocates nothing and returns
-// cudaGetLastError() (0 = success).
+// cudaGetLastError() (0 = success). `n` is the number of y rows: x is read
+// only through the index's columns, so x may have other rows than y, as in
+// a shard's block of a row-sharded operator (parallel/spmm_sharded.py: its
+// own rows against its local x or the gathered x); the caller checks that
+// every column lies inside x.
 
 #include <cuda_runtime.h>
 

@@ -5,13 +5,18 @@
     python -m krylov_robustness_torch.experiments --cpu budget --mode break \\
         --datasets Anaheim Rome
     python -m krylov_robustness_torch.experiments weighted --fun sinh --hessian
+    python -m krylov_robustness_torch.experiments trace
+    python -m krylov_robustness_torch.experiments parity --dense-cutoff 2500
+    torchrun --nproc-per-node 4 -m krylov_robustness_torch.experiments \\
+        scaling --dataset Barcelona --batch 8 --layout coo
 
-By default it runs on ``cuda:0`` in float32 with TF32 off, and raises on a
+By default it runs on the card (``cuda:0``, or under ``torchrun`` the card
+of the rank's ``LOCAL_RANK``) in float32 with TF32 off, and raises on a
 machine without CUDA; ``--cpu`` runs on the CPU in float64 (the
 golden-result configuration, matching the reference's MATLAB doubles). The
-datasets are read from ``$KRYLOV_ROBUSTNESS_DATA`` (``graphs/io.py``). The
-subcommands ``trace``, ``parity`` and ``scaling`` are not ported yet and
-raise ``NotImplementedError``.
+datasets are read from ``$KRYLOV_ROBUSTNESS_DATA`` (``graphs/io.py``).
+``scaling`` joins the ``torchrun`` world when there is one
+(``parallel/mesh.py::maybe_init_distributed``).
 """
 
 from __future__ import annotations
@@ -21,22 +26,17 @@ import sys
 
 import torch
 
-# subcommands of the JAX CLI still to port, with their ROADMAP.md item
-NOT_PORTED = {
-    "trace": "Queue 1 item 3 (experiments/trace_bench.py)",
-    "parity": "Queue 1 item 3 (experiments/parity.py)",
-    "scaling": "Queue 1 item 4 (distributed layer)",
-}
-
 
 def _setup_device(use_cpu: bool):
-    """(device, dtype): the CPU in float64, or cuda:0 in float32 with
-    full-precision f32 matmuls (which raises without CUDA)."""
+    """(device, dtype): the CPU in float64, or the current card (cuda:0
+    unless a launcher chose another) in float32 with full-precision f32
+    matmuls (which raises without CUDA)."""
     if use_cpu:
         return torch.device("cpu"), torch.float64
     from ..utils.device import require_full_f32_matmul, resolve_device
 
-    dev = resolve_device("cuda:0")
+    resolve_device("cuda")  # raises without CUDA
+    dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -106,18 +106,26 @@ def main(argv=None):
                    default=["tuning", "rewire", "add"])
     w.add_argument("--maxiter", type=int, default=200)
 
-    for name, item in NOT_PORTED.items():
-        sub.add_parser(name, help=f"not ported yet (ROADMAP {item})")
+    sub.add_parser("trace", help="trace(exp(A)) wall-time benchmark")
 
-    # the JAX CLI's flags of a subcommand still to port are not declared
-    # here: that subcommand raises whatever flags it is given
-    args, unknown = p.parse_known_args(argv)
-    if args.cmd in NOT_PORTED:
-        raise NotImplementedError(
-            f"the {args.cmd!r} subcommand is not ported yet (ROADMAP.md, "
-            f"{NOT_PORTED[args.cmd]})")
-    if unknown:
-        p.error(f"unrecognized arguments: {' '.join(unknown)}")
+    pa = sub.add_parser("parity", help="deterministic 1e-6 accuracy tables "
+                        "(expmv action + tightened trace) vs dense oracles")
+    pa.add_argument("--dense-cutoff", type=int, default=2500)
+    pa.add_argument("--trace-tol", type=float, default=1e-6)
+
+    s = sub.add_parser("scaling", help="sharded-SpMM scaling efficiency "
+                       "(one process per rank under torchrun)")
+    s.add_argument("--dataset", default="Barcelona")
+    s.add_argument("--batch", type=int, default=8)
+    s.add_argument("--layout", choices=["coo", "ell"], default="coo")
+
+    args = p.parse_args(argv)
+    if args.cmd == "scaling":
+        from ..parallel.mesh import maybe_init_distributed
+
+        # before the device is chosen: under torchrun each rank takes the
+        # card of its LOCAL_RANK
+        maybe_init_distributed()
     dev, dtype = _setup_device(args.cpu)
 
     if args.cmd == "unweighted":
@@ -142,13 +150,60 @@ def main(argv=None):
                              methods=tuple(args.methods))
         run_weighted(cfg, out_dir=args.out_dir, countries=args.countries,
                      dtype=dtype, device=dev)
-    else:
+    elif args.cmd == "budget":
         from .unweighted import run_budget_sweep
 
         run_budget_sweep(args.datasets, args.budgets, args.search_spaces,
                          mode=args.mode, tol=args.tol, out_dir=args.out_dir,
                          dtype=dtype, force=args.force, device=dev)
+    elif args.cmd == "trace":
+        from .trace_bench import run
+
+        run(out_dir=args.out_dir, dtype=dtype, device=dev)
+    elif args.cmd == "parity":
+        from .parity import (
+            run_expmv_parity,
+            run_trace_f32_lane,
+            run_trace_tight,
+        )
+
+        run_expmv_parity(out_dir=args.out_dir,
+                         dense_cutoff=args.dense_cutoff, device=dev)
+        run_trace_tight(out_dir=args.out_dir, tol=args.trace_tol, device=dev)
+        run_trace_f32_lane(out_dir=args.out_dir, device=dev)
+    else:
+        _scaling(args, dev, dtype)
     return 0
+
+
+def _scaling(args, dev, dtype) -> None:
+    """The ``scaling`` subcommand: one JSON line (rank 0 of a torchrun
+    world) with nnz·b/s per mesh size and the efficiency against the
+    smallest mesh."""
+    import json
+
+    import torch.distributed as dist
+
+    from ..graphs.io import load_transport
+    from ..graphs.preprocess import preprocess_unweighted
+    from .scaling import measure_sharded_spmm, scaling_efficiency
+
+    A = preprocess_unweighted(load_transport(args.dataset))
+    res = measure_sharded_spmm(A, b=args.batch, dtype=dtype,
+                               layout=args.layout, device=dev)
+    if dist.is_initialized():
+        rank = dist.get_rank()
+        dist.destroy_process_group()
+        if rank != 0:
+            return
+    eff = scaling_efficiency(res)
+    print(json.dumps({
+        "dataset": args.dataset,
+        "layout": args.layout,
+        "device": str(dev),
+        "rates_nnzb_per_s": {str(d): r for d, (t, r) in res.items()},
+        "efficiency": {str(d): e for d, e in eff.items()},
+    }))
 
 
 if __name__ == "__main__":

@@ -15,6 +15,7 @@ from .ops.bsr import BsrOperator
 from .ops.bsr_super import SuperBsrOperator
 from .ops.sparse import CooMatrix
 from .optimize.continuous import ContinuousProblem
+from .parallel.spmm_sharded import BsrRowShardedMatrix, RowShardedMatrix
 from .utils.device import float_dtype, resolve_device
 
 
@@ -86,6 +87,64 @@ def banded_ell_from_arrays(relT, winT, valT, Wv: int, n: int, entry_pos,
         torch.as_tensor(cols, device=dev),
         torch.as_tensor(vals, device=dev).to(dtype), (ks, rows),
         decoded[ks, rows])
+
+
+def row_sharded_from_arrays(rows_local, cols, vals, n: int, n_orig: int,
+                            nnz: int, mesh, axis: str = "rows",
+                            batch_axis: str | None = None,
+                            layout: str = "coo") -> RowShardedMatrix:
+    """This rank's shard of a ``RowShardedMatrix`` from the JAX operator's
+    global arrays: ``rows_local``/``cols``/``vals`` of D·nnz_shard slots
+    (COO) or ``cols``/``vals`` (n, K) (ELL)."""
+    D, d = mesh.shape[axis], mesh.index(axis)
+    dev = mesh.device
+    vals = np.array(vals)
+    dtype = torch.float32 if vals.dtype == np.float32 else torch.float64
+    if layout == "ell":
+        rps = n // D
+        part = slice(d * rps, (d + 1) * rps)
+        rows_t = torch.zeros(0, dtype=torch.int64, device=dev)
+        cols_t = torch.as_tensor(np.array(cols)[part].astype(np.int64),
+                                 device=dev)
+        vals_t = torch.as_tensor(vals[part], device=dev)
+    else:
+        per = len(vals) // D
+        part = slice(d * per, (d + 1) * per)
+        rows_t, cols_t = (torch.as_tensor(np.array(a)[part].astype(np.int64),
+                                          device=dev) for a in (rows_local,
+                                                                cols))
+        vals_t = torch.as_tensor(np.concatenate([vals[part], [0]]),
+                                 device=dev)
+    return RowShardedMatrix(mesh=mesh, rows_local=rows_t, cols=cols_t,
+                            vals=vals_t.to(dtype), n=int(n),
+                            n_orig=int(n_orig), nnz=int(nnz), axis=axis,
+                            batch_axis=batch_axis, layout=layout)
+
+
+def bsr_row_sharded_from_arrays(atiles, slab, sup, start, entry_flat,
+                                entry_rc, n: int, n_orig: int, nnz: int,
+                                m_pad: int, n_pad: int, n_diag: int,
+                                mode: str, dtype, mesh, axis: str = "rows",
+                                batch_axis: str | None = None
+                                ) -> BsrRowShardedMatrix:
+    """This rank's shard of a ``BsrRowShardedMatrix`` from the JAX
+    operator's global packing: ``atiles`` (D, ntile_u, tile_r, tile_c),
+    ``slab``/``sup``/``start`` (D, ntile_u), its ``entry_positions()`` and
+    ``entry_rc()``, and its sizes. The tiles are converted to the storage
+    dtype of ``mode`` (bf16 for ``bf16xN``, else ``dtype``)."""
+    d = mesh.index(axis)
+    dtype = float_dtype(dtype)
+    store = torch.bfloat16 if mode.startswith("bf16x") else dtype
+    tiles = np.array(atiles[d], np.float64)
+    storage = torch.as_tensor(np.concatenate([tiles.reshape(-1), [0.0]]),
+                              device=mesh.device).to(store)
+    return BsrRowShardedMatrix(
+        mesh=mesh, storage=storage,
+        meta=tuple(np.array(a)[d] for a in (slab, sup, start)),
+        entry_flat=entry_flat, entry_rc=entry_rc, n=n, n_orig=n_orig,
+        nnz=nnz, m_pad=m_pad, n_pad=n_pad, n_diag=n_diag,
+        tile=tiles.shape[1:], mode=mode, dtype=dtype, axis=axis,
+        batch_axis=batch_axis)
 
 
 def lanczos_state_from_arrays(v_prev, v_cur, alive, device) -> LanczosState:

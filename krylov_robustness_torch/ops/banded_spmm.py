@@ -129,8 +129,10 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, row_ptr: torch.Tensor,
                          f"{dev}")
     if x.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"K3 takes float32 or float64, got {x.dtype}")
-    row_gather.check_launch("K3", row_ptr, entry_cols, val_off, vals, x,
-                            x.dtype, x.dtype)
+    if row_gather.check_launch("K3", row_ptr, entry_cols, val_off, vals, x,
+                               x.dtype, x.dtype) != x.shape[0]:
+        raise ValueError(f"row_ptr has {row_ptr.shape[0]} entries, x has "
+                         f"{x.shape[0]} rows: K3 takes a square matrix")
     if cols.device != dev or cols.dtype != torch.int32 or \
             not cols.is_contiguous():
         raise ValueError(f"cols must be contiguous int32 on {dev}, got "

@@ -154,9 +154,11 @@ def bsr_spmm(row_ptr: torch.Tensor, cols: torch.Tensor,
     global launches_bsr
     if x.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"K4 takes float32 or float64, got {x.dtype}")
-    row_gather.check_launch("K4", row_ptr, cols, val_off, ablocks, x,
-                            x.dtype, x.dtype)
     n, b = x.shape
+    if row_gather.check_launch("K4", row_ptr, cols, val_off, ablocks, x,
+                               x.dtype, x.dtype) != n:
+        raise ValueError(f"row_ptr has {row_ptr.shape[0]} entries, x has {n} "
+                         f"rows: K4 takes a square matrix")
     y = torch.empty((n, b), dtype=x.dtype, device=x.device)
     lib = _library()
     fn = (lib.krt_bsr_flat_f32 if x.dtype == torch.float32

@@ -64,46 +64,77 @@ def _n_pad(n: int, tile_r: int, tile_c: int) -> int:
 
 
 # -- packing ---------------------------------------------------------------
-def pack_bsr_super(A_scipy, tile_r: int = TILE_R, tile_c: int = TILE_C, *,
-                   dtype=torch.float64, device):
-    """Pack a (RCM-permuted) scipy matrix into super-tiles.
-
-    Returns (atiles (ntile, tile_r, tile_c) in ``dtype`` on ``device``, meta
-    = (slab, sup, start) int32 sorted by (super, slab), entry_tile,
-    entry_offset, n_pad); the entry arrays map CSR-order nnz index → (tile,
-    flat offset). ``atiles`` is filled in its storage dtype straight from the
-    nonzeros, never through a dense f64 host array.
-    """
+def super_layout(A_scipy, tile_r: int, tile_c: int, m_pad: int, n_pad: int):
+    """The super-tile layout of a (possibly rectangular) CSR matrix padded to
+    m_pad × n_pad, without the tiles: (coo (CSR order), meta = (slab, sup,
+    start) int32 sorted by (super, slab), entry_tile, entry_offset). The
+    entry arrays map CSR-order nnz index → (tile, flat offset in the tile);
+    every super-row owns at least one tile so every y row is written."""
     A = sp.csr_matrix(A_scipy)
     A.sort_indices()
-    n = A.shape[0]
-    n_pad = _n_pad(n, tile_r, tile_c)
     nslab = n_pad // tile_c
-    nsup = n_pad // tile_r
+    nsup = m_pad // tile_r
     coo = A.tocoo()
     key = (coo.row // tile_r).astype(np.int64) * nslab + coo.col // tile_c
     uniq = np.unique(key)
-    # every super-row needs ≥1 tile so its y rows are written
     missing = np.setdiff1d(np.arange(nsup), np.unique(uniq // nslab))
     if len(missing):
         extra = missing.astype(np.int64) * nslab + np.minimum(missing,
                                                               nslab - 1)
         uniq = np.unique(np.concatenate([uniq, extra]))
-    ntile = len(uniq)
     sup = (uniq // nslab).astype(np.int32)
     slab = (uniq % nslab).astype(np.int32)
-    start = np.zeros(ntile, dtype=np.int32)
+    start = np.zeros(len(uniq), dtype=np.int32)
     start[np.unique(sup, return_index=True)[1]] = 1
     entry_tile = np.searchsorted(uniq, key).astype(np.int64)
     entry_offset = ((coo.row % tile_r).astype(np.int64) * tile_c
                     + coo.col % tile_c).astype(np.int64)
-    dev = resolve_device(device)
+    return coo, (slab, sup, start), entry_tile, entry_offset
+
+
+def _fill(ntile, tile_r, tile_c, entry_tile, entry_offset, data, dtype, dev):
+    """(ntile, tile_r, tile_c) tiles in their storage dtype, filled straight
+    from the nonzeros, never through a dense f64 host array."""
     atiles = torch.zeros((ntile, tile_r, tile_c), dtype=dtype, device=dev)
     atiles.view(ntile, -1)[
         torch.as_tensor(entry_tile, device=dev),
         torch.as_tensor(entry_offset, device=dev),
-    ] = torch.as_tensor(coo.data, device=dev).to(dtype)
-    return atiles, (slab, sup, start), entry_tile, entry_offset, n_pad
+    ] = torch.as_tensor(data, device=dev).to(dtype)
+    return atiles
+
+
+def pack_bsr_super(A_scipy, tile_r: int = TILE_R, tile_c: int = TILE_C, *,
+                   dtype=torch.float64, device):
+    """Pack a (RCM-permuted) square scipy matrix into super-tiles.
+
+    Returns (atiles (ntile, tile_r, tile_c) in ``dtype`` on ``device``, meta
+    = (slab, sup, start), entry_tile, entry_offset, n_pad); see
+    :func:`super_layout`.
+    """
+    n_pad = _n_pad(A_scipy.shape[0], tile_r, tile_c)
+    coo, meta, et, eo = super_layout(A_scipy, tile_r, tile_c, n_pad, n_pad)
+    atiles = _fill(len(meta[0]), tile_r, tile_c, et, eo, coo.data, dtype,
+                   resolve_device(device))
+    return atiles, meta, et, eo, n_pad
+
+
+def block_pads(m: int, n: int, tile_r: int, tile_c: int) -> tuple[int, int]:
+    """(m_pad, n_pad) of an m × n block: rows and columns pad on their own."""
+    return _round_up(max(m, tile_r), tile_r), _round_up(max(n, tile_c), tile_c)
+
+
+def pack_bsr_super_block(A_block, tile_r: int = TILE_R, tile_c: int = TILE_C,
+                         *, dtype=torch.float64, device):
+    """Rectangular variant of :func:`pack_bsr_super` for a row block of a
+    row-partitioned matrix (rows = a shard's rows, columns = all columns or
+    the shard's own window): rows and columns pad on their own. Returns
+    (atiles, meta, entry_tile, entry_offset, (m_pad, n_pad)), as the JAX
+    package's ``pallas_bsr_super.py:238-280``."""
+    m_pad, n_pad = block_pads(*A_block.shape, tile_r, tile_c)
+    coo, meta, et, eo = super_layout(A_block, tile_r, tile_c, m_pad, n_pad)
+    atiles = _fill(len(meta[0]), tile_r, tile_c, et, eo, coo.data, dtype,
+                   resolve_device(device))
+    return atiles, meta, et, eo, (m_pad, n_pad)
 
 
 def super_tile_count(A_scipy, perm: np.ndarray | None = None,
@@ -137,11 +168,26 @@ def bf16_split(x: torch.Tensor, terms: int) -> torch.Tensor:
 
 
 # -- plain versions (CPU path, and the kernels' on-card reference) ---------
-def tile_spmm_bf16_plain(atiles, slab, sup, x, n_pad: int, terms: int):
+def _fold_rows(p, sup, m_pad: int, m: int):
+    """The tile products ``p`` (ntile, tile_r, b) summed into y by super-row
+    with ``index_add_``; rows [0, m) of the m_pad-row result."""
+    _, tile_r, b = p.shape
+    y = torch.zeros((m_pad // tile_r, tile_r, b), dtype=p.dtype,
+                    device=p.device)
+    y.index_add_(0, sup.long(), p)
+    return y.view(m_pad, b)[:m]
+
+
+# Each plain version takes x of n rows (padded to n_pad, a multiple of the
+# tile width, for the slab view) and gives y of m rows (m_pad, a multiple of
+# the tile height, for the super-row fold); m and m_pad default to n and
+# n_pad, the square operator's product.
+def tile_spmm_bf16_plain(atiles, slab, sup, x, n_pad: int, terms: int,
+                         m_pad: int | None = None, m: int | None = None):
     """Plain twin of K1: per term, batched f32 tile products over the x
     slabs, folded term-wise, then ``index_add_`` into y by super-row."""
     n, b = x.shape
-    ntile, tile_r, tile_c = atiles.shape
+    _, tile_r, tile_c = atiles.shape
     xp = torch.zeros((n_pad, b), dtype=torch.float32, device=x.device)
     xp[:n] = x
     xcat = bf16_split(xp, terms).view(n_pad // tile_c, tile_c, terms * b)
@@ -149,25 +195,22 @@ def tile_spmm_bf16_plain(atiles, slab, sup, x, n_pad: int, terms: int):
     s = p[..., :b]
     for k in range(1, terms):
         s = s + p[..., k * b:(k + 1) * b]
-    y = torch.zeros((n_pad // tile_r, tile_r, b), dtype=torch.float32,
-                    device=x.device)
-    y.index_add_(0, sup.long(), s)
-    return y.view(n_pad, b)[:n]
+    return _fold_rows(s, sup, n_pad if m_pad is None else m_pad,
+                      n if m is None else m)
 
 
-def tile_spmm_full_plain(atiles, slab, sup, x, n_pad: int):
+def tile_spmm_full_plain(atiles, slab, sup, x, n_pad: int,
+                         m_pad: int | None = None, m: int | None = None):
     """Plain twin of K2: batched tile products in the compute dtype, then
     ``index_add_`` into y by super-row."""
     n, b = x.shape
-    ntile, tile_r, tile_c = atiles.shape
+    _, tile_r, tile_c = atiles.shape
     xp = torch.zeros((n_pad, b), dtype=x.dtype, device=x.device)
     xp[:n] = x
     xs = xp.view(n_pad // tile_c, tile_c, b)[slab.long()]
     p = torch.bmm(atiles.to(x.dtype), xs)
-    y = torch.zeros((n_pad // tile_r, tile_r, b), dtype=x.dtype,
-                    device=x.device)
-    y.index_add_(0, sup.long(), p)
-    return y.view(n_pad, b)[:n]
+    return _fold_rows(p, sup, n_pad if m_pad is None else m_pad,
+                      n if m is None else m)
 
 
 # -- kernel binding ----------------------------------------------------------
@@ -187,23 +230,25 @@ def _library() -> ctypes.CDLL:
 
 
 def tile_spmm_bf16(row_ptr, cols, val_off, atiles, x, terms: int):
-    """K1: y (n, b) f32 = A @ x for f32 x (n, b), A's values gathered out of
-    the bf16 tiles ``atiles`` through the int32 row index (``row_ptr`` of
-    n + 1, ``cols`` and ``val_off`` of nnz; see :mod:`.row_gather`), x split
-    into ``terms`` bf16 parts inside the kernel."""
+    """K1: y (m, b) f32 = A @ x for f32 x (n_x, b), A's values gathered out
+    of the bf16 tiles ``atiles`` through the int32 row index (``row_ptr`` of
+    m + 1, ``cols`` and ``val_off`` of nnz, every column below n_x; see
+    :mod:`.row_gather`), x split into ``terms`` bf16 parts inside the kernel.
+    m = n_x for the square operator; a shard's block of a row-sharded
+    operator has its own rows (m) and reads local or gathered x (n_x)."""
     global launches_bf16
-    row_gather.check_launch("K1", row_ptr, cols, val_off, atiles, x,
-                            torch.bfloat16, torch.float32)
+    m = row_gather.check_launch("K1", row_ptr, cols, val_off, atiles, x,
+                                torch.bfloat16, torch.float32)
     if terms not in (2, 3):
         raise ValueError(f"terms must be 2 or 3, got {terms}")
-    n, b = x.shape
-    y = torch.empty((n, b), dtype=torch.float32, device=x.device)
+    b = x.shape[1]
+    y = torch.empty((m, b), dtype=torch.float32, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.krt_bsr_super_bf16(
             row_ptr.data_ptr(), cols.data_ptr(), val_off.data_ptr(),
-            atiles.data_ptr(), x.data_ptr(), y.data_ptr(), n, b, terms,
+            atiles.data_ptr(), x.data_ptr(), y.data_ptr(), m, b, terms,
             stream)
     cuda_build.raise_on(code, "krt_bsr_super_bf16")
     launches_bf16 += 1
@@ -211,25 +256,25 @@ def tile_spmm_bf16(row_ptr, cols, val_off, atiles, x, terms: int):
 
 
 def tile_spmm_full(row_ptr, cols, val_off, atiles, x):
-    """K2: y (n, b) = A @ x for x (n, b) in f32 or f64, A's values gathered
+    """K2: y (m, b) = A @ x for x (n_x, b) in f32 or f64, A's values gathered
     out of the tiles ``atiles`` (in x's dtype) through the int32 row index
-    (``row_ptr`` of n + 1, ``cols`` and ``val_off`` of nnz; see
-    :mod:`.row_gather`), one DFMA an entry into an f64 sum (in f32 rounded
-    once at the store)."""
+    (``row_ptr`` of m + 1, ``cols`` and ``val_off`` of nnz, every column
+    below n_x; see :mod:`.row_gather`), one DFMA an entry into an f64 sum
+    (in f32 rounded once at the store). m and n_x as for K1."""
     global launches_f32
     if x.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"K2 takes float32 or float64, got {x.dtype}")
-    row_gather.check_launch("K2", row_ptr, cols, val_off, atiles, x,
-                            x.dtype, x.dtype)
-    n, b = x.shape
-    y = torch.empty((n, b), dtype=x.dtype, device=x.device)
+    m = row_gather.check_launch("K2", row_ptr, cols, val_off, atiles, x,
+                                x.dtype, x.dtype)
+    b = x.shape[1]
+    y = torch.empty((m, b), dtype=x.dtype, device=x.device)
     lib = _library()
     fn = (lib.krt_bsr_super_f32 if x.dtype == torch.float32
           else lib.krt_bsr_super_f64)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(row_ptr.data_ptr(), cols.data_ptr(), val_off.data_ptr(),
-                  atiles.data_ptr(), x.data_ptr(), y.data_ptr(), n, b,
+                  atiles.data_ptr(), x.data_ptr(), y.data_ptr(), m, b,
                   stream)
     cuda_build.raise_on(code, fn.__name__)
     launches_f32 += 1

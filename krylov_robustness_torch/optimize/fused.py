@@ -44,13 +44,20 @@ F32_FLOOR_REL = 6.0
 
 
 def coo_rebuild(op, vals):
-    """Frozen-structure COO operator over replaced values (no copy)."""
+    """Frozen-structure COO / row-sharded operator over replaced values (no
+    copy)."""
     return dataclasses.replace(op, vals=vals)
 
 
 def bsr_rebuild(op, flat_vals):
     """SuperBsrOperator over replacement tile storage (a view, no copy)."""
     return op.with_tiles(flat_vals.view(op.atiles.shape))
+
+
+def sharded_bsr_rebuild(op, flat_vals):
+    """BsrRowShardedMatrix over replacement storage (this rank's flattened
+    tiles and their scratch element; a view, no copy)."""
+    return op.with_storage(flat_vals)
 
 
 def _spectra(stacked: torch.Tensor, bs: int) -> torch.Tensor:

@@ -82,6 +82,30 @@ def _with_slots(A: sp.csr_matrix, extra_edges) -> sp.csr_matrix:
     return (A + pattern.tocsr()).tocsr()
 
 
+def _with_zero_slots(A: sp.csr_matrix, extra_edges) -> sp.csr_matrix:
+    """A with explicit-zero entries at both triangles of ``extra_edges``
+    (make mode's candidate slots): additions become pure value updates, and
+    a bf16-exactness test of the values sees the zeros they hold."""
+    if extra_edges is None or not len(extra_edges):
+        return A
+    e = np.asarray(extra_edges)
+    C0 = sp.coo_matrix(A)
+    r = np.concatenate([C0.row, e[:, 0], e[:, 1]])
+    c = np.concatenate([C0.col, e[:, 1], e[:, 0]])
+    v = np.concatenate([C0.data, np.zeros(2 * len(e), C0.data.dtype)])
+    return sp.coo_matrix((v, (r, c)), shape=A.shape).tocsr()
+
+
+def _search(keys: np.ndarray, n: int, i, j) -> np.ndarray:
+    """Positions of the row-major keys i·n + j in the sorted ``keys``;
+    KeyError where one is missing."""
+    key = np.asarray(i, np.int64) * n + np.asarray(j, np.int64)
+    pos = np.minimum(np.searchsorted(keys, key), max(len(keys) - 1, 0))
+    if not len(keys) or not np.all(keys[pos] == key):
+        raise KeyError("edge not in the frozen structure")
+    return pos
+
+
 class _FrozenStructureMatrix:
     """COO matrix with a fixed sparsity pattern and in-place value edits
     (symmetric). (i, j) → slot lookups search the sorted row-major keys."""
@@ -90,19 +114,16 @@ class _FrozenStructureMatrix:
                  dtype=torch.float64, *, device):
         A = _with_slots(sp.csr_matrix(A, copy=True), extra_edges)
         self.mat = CooMatrix.from_scipy(A, dtype=dtype, device=device)
-        self._keys = _np(self.mat.rows) * self.mat.n + _np(self.mat.cols)
+        k = self.mat.nnz
+        self._keys = _np(self.mat.rows[:k]) * self.mat.n + _np(
+            self.mat.cols[:k])
         if extra_edges is not None and len(extra_edges):
             # zero the placeholder values (in place)
             idx = self._edge_positions(np.asarray(extra_edges))
             self.mat.vals[torch.as_tensor(idx, device=self.mat.device)] = 0.0
 
     def _lookup(self, i, j) -> np.ndarray:
-        key = np.asarray(i, np.int64) * self.mat.n + np.asarray(j, np.int64)
-        pos = np.minimum(np.searchsorted(self._keys, key),
-                         max(len(self._keys) - 1, 0))
-        if not len(self._keys) or not np.all(self._keys[pos] == key):
-            raise KeyError("edge not in the frozen structure")
-        return pos
+        return _search(self._keys, self.mat.n, i, j)
 
     def _edge_positions(self, edges: np.ndarray) -> np.ndarray:
         e = np.asarray(edges, np.int64).reshape(-1, 2)
@@ -143,6 +164,160 @@ class _FrozenStructureMatrix:
 
     def set_fused_vals(self, vals):
         self.mat = dataclasses.replace(self.mat, vals=vals)
+
+
+def _batch_axis(mesh):
+    return "cands" if "cands" in mesh.shape else None
+
+
+class _ShardedSlots:
+    """(i, j) → global flat position of a sharded operator's value slot (a
+    search over the sorted row-major keys), and positions in this rank's
+    storage for the fused lane, where another rank's slot maps to the
+    scratch element."""
+
+    def _set_keys(self, keys: np.ndarray, flat: np.ndarray) -> None:
+        by_key = np.argsort(keys, kind="stable")
+        self._keys, self._flat = keys[by_key], flat[by_key]
+
+    def _lookup(self, i, j) -> np.ndarray:
+        return self._flat[_search(self._keys, self.operator.n, i, j)]
+
+    _edge_positions = _FrozenStructureMatrix._edge_positions
+
+    def fused_slots(self, E: np.ndarray) -> np.ndarray:
+        E = np.asarray(E, np.int64).reshape(-1, 2)
+        return np.stack([self.operator.local_positions(
+            self._lookup(E[:, a], E[:, b])) for a, b in ((0, 1), (1, 0))],
+            axis=1)
+
+
+class _ShardedFrozenMatrix(_ShardedSlots):
+    """Frozen-structure adapter over :class:`..parallel.spmm_sharded.
+    RowShardedMatrix` (COO layout): the row-partitioned operator, with the
+    candidate batch split over a ``cands`` axis on a 2-D mesh. Slots are
+    addressed by their global flat position shard·nnz_shard + slot, as in
+    the JAX package; each rank writes the ones it holds (another rank's
+    land in the scratch slot)."""
+
+    def __init__(self, A: sp.spmatrix, extra_edges: np.ndarray | None,
+                 dtype=torch.float64, mesh=None, *, device):
+        from ..parallel.mesh import default_mesh
+        from ..parallel.spmm_sharded import RowShardedMatrix
+
+        mesh = default_mesh(device=device) if mesh is None else mesh
+        A = _with_slots(sp.csr_matrix(A, copy=True), extra_edges)
+        self.mat = RowShardedMatrix.from_scipy(A, mesh, dtype=dtype,
+                                               batch_axis=_batch_axis(mesh))
+        # global flat position of each entry, mirroring from_scipy's packing
+        # (row-sorted, each shard's run contiguous)
+        C = sp.coo_matrix(A)
+        order = np.argsort(C.row, kind="stable")
+        rows, cols = C.row[order].astype(np.int64), C.col[order]
+        D = mesh.shape[self.mat.axis]
+        shard_of = rows // self.mat.rows_per_shard
+        starts = np.concatenate(
+            [[0], np.cumsum(np.bincount(shard_of, minlength=D))[:-1]])
+        self._set_keys(rows * self.mat.n + cols, shard_of *
+                       self.mat.nnz_shard + (np.arange(len(rows))
+                                             - starts[shard_of]))
+        if extra_edges is not None and len(extra_edges):
+            self.set_edges(np.asarray(extra_edges), 0.0)
+
+    def set_edges(self, edges, value: float):
+        idx = self.mat.local_positions(self._edge_positions(edges))
+        self.mat.vals[torch.as_tensor(idx, device=self.mat.device)] = value
+
+    def set_edge(self, i: int, j: int, value: float):
+        self.set_edges(np.array([[i, j]]), value)
+
+    @property
+    def operator(self):
+        return self.mat
+
+    def map_edges(self, E: np.ndarray) -> np.ndarray:
+        return E
+
+    def to_scipy(self) -> sp.csr_matrix:
+        rows, cols, vals = self.mat.gather_coo()
+        n = self.mat.n_orig
+        # pad slots carry val 0 and go with the zeros
+        out = sp.coo_matrix((vals, (rows, cols)),
+                            shape=(self.mat.n, self.mat.n)).tocsr()[:n, :n]
+        out.eliminate_zeros()
+        return out
+
+    # -- fused multi-step hooks (fused_slots: positions in this rank's vals)
+    fused_state = _FrozenStructureMatrix.fused_state
+    fused_rebuild = staticmethod(_FrozenStructureMatrix.fused_rebuild)
+    set_fused_vals = _FrozenStructureMatrix.set_fused_vals
+
+
+class _ShardedBsrFrozenMatrix(_ShardedSlots):
+    """Frozen-structure adapter over :class:`..parallel.spmm_sharded.
+    BsrRowShardedMatrix`, whose local product is K1/K2. Globally
+    RCM-permuted at build time, so each shard's block is banded; candidate
+    selection and reported edges stay in the original labeling through the
+    pinv mapping, as with :class:`_BsrAdapter`. Make mode's candidate slots
+    are explicit zeros from the start (the JAX package writes 1e-300
+    placeholders and zeros them after the packing, so its bf16-exactness
+    test sees the placeholders and runs K2 where K1 is exact)."""
+
+    def __init__(self, A: sp.spmatrix, extra_edges: np.ndarray | None,
+                 dtype=torch.float64, mesh=None, tile=(512, 256), *, device):
+        from ..ops.banded_spmm import rcm_permutation
+        from ..parallel.mesh import default_mesh
+        from ..parallel.spmm_sharded import BsrRowShardedMatrix
+
+        mesh = default_mesh(device=device) if mesh is None else mesh
+        A = _with_zero_slots(sp.csr_matrix(A, copy=True), extra_edges)
+        perm = rcm_permutation(A)
+        self.pinv = np.empty_like(perm)
+        self.pinv[perm] = np.arange(len(perm))
+        # permute in COO space (scipy's fancy indexing would drop the
+        # explicit-zero addition slots)
+        C1 = sp.coo_matrix(A)
+        Ap = sp.coo_matrix((C1.data, (self.pinv[C1.row], self.pinv[C1.col])),
+                           shape=A.shape).tocsr()
+        self.op = BsrRowShardedMatrix.from_scipy(
+            Ap, mesh, dtype=dtype, batch_axis=_batch_axis(mesh), tile=tile)
+        rc = self.op.entry_rc()
+        self._set_keys(rc[:, 0] * self.op.n + rc[:, 1],
+                       self.op.entry_positions())
+
+    @property
+    def operator(self):
+        return self.op
+
+    def map_edges(self, E: np.ndarray) -> np.ndarray:
+        return self.pinv[np.asarray(E)]
+
+    def set_edge(self, i: int, j: int, value: float):
+        pi, pj = int(self.pinv[i]), int(self.pinv[j])
+        self.op.set_flat(self._edge_positions(np.array([[pi, pj]])), value)
+
+    def to_scipy(self) -> sp.csr_matrix:
+        rc = self.op.entry_rc()
+        vals = self.op.entry_values().astype(np.float64)
+        perm = np.empty_like(self.pinv)
+        perm[self.pinv] = np.arange(len(self.pinv))
+        out = sp.coo_matrix((vals, (perm[rc[:, 0]], perm[rc[:, 1]])),
+                            shape=self.op.shape).tocsr()
+        out.eliminate_zeros()
+        return out
+
+    # -- fused multi-step hooks: this rank's flattened tiles and scratch ----
+    def fused_state(self):
+        return self.op, self.op.storage
+
+    @staticmethod
+    def fused_rebuild(op, flat_vals):
+        from .fused import sharded_bsr_rebuild
+
+        return sharded_bsr_rebuild(op, flat_vals)
+
+    def set_fused_vals(self, flat_vals):
+        self.op = self.fused_rebuild(self.op, flat_vals)
 
 
 class _BandedAdapter:
@@ -281,16 +456,7 @@ def choose_operator(A, top, Q: int, mode: str, backend: str,
         return "coo", None, None
     perm = rcm_permutation(A)
     if backend == "bsr" or (backend == "auto" and 2 * Q >= 256):
-        A_aug = A
-        if mode == "make":
-            # candidate slots as explicit zeros (both triangles): greedy
-            # additions are pure value updates
-            C0 = sp.coo_matrix(A)
-            r = np.concatenate([C0.row, top[:, 0], top[:, 1]])
-            c = np.concatenate([C0.col, top[:, 1], top[:, 0]])
-            v = np.concatenate([C0.data,
-                                np.zeros(2 * len(top), C0.data.dtype)])
-            A_aug = sp.coo_matrix((v, (r, c)), shape=A.shape).tocsr()
+        A_aug = _with_zero_slots(A, top if mode == "make" else None)
         # bf16 tile storage (mode auto picks bf16x2 for 0/±1 adjacency)
         if super_tile_count(A_aug, perm) * TILE_R * TILE_C * 2 \
                 <= BSR_STORAGE_CAP:
@@ -316,6 +482,7 @@ def greedy_krylov(
     dataset: str = "",
     backend: str = "auto",
     shift: float = 0.0,
+    mesh=None,
     rescore_every: int = 1,
     rescore_frac: float = 0.2,
     fused_steps: int | None = 0,
@@ -328,11 +495,17 @@ def greedy_krylov(
 
     ``backend``: 'coo' (gather + ``index_add_`` SpMM), 'bsr' (RCM +
     super-tile kernels K1/K2), 'banded' (RCM + banded-ELL kernel K3, break
-    mode), or 'auto' — on CUDA the JAX package's choice on the TPU
-    (:func:`choose_operator`), COO otherwise. 'sharded' and 'sharded_bsr' are
-    not ported yet. The super-tile and banded operators work in a relabeled
-    node space; candidate selection and reported edges stay in the original
-    labeling.
+    mode), 'sharded' (the row-partitioned operator over the ranks of
+    ``mesh``, with the candidate batch split over a 'cands' axis; pass
+    ``mesh`` or one is built over every rank of the process group),
+    'sharded_bsr' (the same partitioning, each shard's product K1/K2 over
+    its super-tiles, globally RCM-permuted), or 'auto' — on CUDA the JAX
+    package's choice on the TPU (:func:`choose_operator`), COO otherwise.
+    The sharded backends run on every rank of the mesh, each holding its
+    row block and repeating the host and Krylov work on replicated blocks;
+    ``device`` is the rank's device. The super-tile, banded and
+    'sharded_bsr' operators work in a relabeled node space; candidate
+    selection and reported edges stay in the original labeling.
 
     ``fused_steps`` > 1 runs that many budget steps per block (:mod:`.fused`)
     with per-step replay of straggler steps; ``None`` resolves per dtype (10
@@ -346,11 +519,11 @@ def greedy_krylov(
         require_full_f32_matmul()
     if fused_steps is None:
         fused_steps = 10 if dtype == torch.float32 else 0
-    if backend in ("sharded", "sharded_bsr"):
-        raise NotImplementedError(
-            f"backend={backend!r} is not ported yet (ROADMAP.md, Queue 1)")
-    if backend not in ("auto", "coo", "bsr", "banded"):
+    if backend not in ("auto", "coo", "bsr", "banded", "sharded",
+                       "sharded_bsr"):
         raise ValueError(f"unknown backend {backend!r}")
+    if mesh is not None and mesh.device.type != dev.type:
+        raise ValueError(f"the mesh is on {mesh.device}, device is {dev}")
     A = sp.csr_matrix(A, copy=True)
     if Q is None or Q == 0:
         Q = int(A.sum(axis=0).max())
@@ -362,6 +535,37 @@ def greedy_krylov(
         top = find_top_edges(A, centrality, Q + k, order)
     sign = -1.0 if mode == "break" else +1.0
 
+    extra = top if mode == "make" else None
+    if backend == "sharded":
+        F = _ShardedFrozenMatrix(A, extra, dtype=dtype, mesh=mesh, device=dev)
+    elif backend == "sharded_bsr":
+        F = _ShardedBsrFrozenMatrix(A, extra, dtype=dtype, mesh=mesh,
+                                    device=dev)
+    else:
+        F = _single_device_operator(A, top, Q, mode, backend, dtype, dev)
+
+    # Below the dense cutoff the per-step loop scores exactly; above the
+    # cell ceiling the fused block (one scoring call per step, unchunked)
+    # cannot run, so large windows take the per-step loop. ¾ of the ceiling
+    # leaves room for the padded window and the operator's padded rows. An
+    # operator without the fused hooks (banded) runs the per-step loop.
+    if (fused_steps > 1 and rescore_every <= 1
+            and A.shape[0] > trace_update.DENSE_N_CUTOFF
+            and (Q + fused_steps + 64) * A.shape[0]
+            <= (3 * trace_update.MAX_SCORE_CELLS) // 4
+            and hasattr(F, "fused_state")):
+        return _greedy_loop_fused(F, top, Q, k, mode, sign, fun, tol,
+                                  rescale, schedule, shift, checkpoint,
+                                  dataset, R=fused_steps)
+    return _greedy_loop(F, top, Q, k, mode, sign, fun, tol, rescale,
+                        schedule, shift, checkpoint, dataset,
+                        rescore_every=rescore_every,
+                        rescore_frac=rescore_frac)
+
+
+def _single_device_operator(A, top, Q: int, mode: str, backend: str, dtype,
+                            dev):
+    """The adapter over the operator :func:`choose_operator` picks."""
     kind, perm, A_aug = choose_operator(A, top, Q, mode, backend, dev)
     if kind != "coo":
         pinv = np.empty_like(perm)
@@ -387,24 +591,7 @@ def greedy_krylov(
         F = _FrozenStructureMatrix(
             A, extra_edges=top if mode == "make" else None, dtype=dtype,
             device=dev)
-
-    # Below the dense cutoff the per-step loop scores exactly; above the
-    # cell ceiling the fused block (one scoring call per step, unchunked)
-    # cannot run, so large windows take the per-step loop. ¾ of the ceiling
-    # leaves room for the padded window and the operator's padded rows. An
-    # operator without the fused hooks (banded) runs the per-step loop.
-    if (fused_steps > 1 and rescore_every <= 1
-            and A.shape[0] > trace_update.DENSE_N_CUTOFF
-            and (Q + fused_steps + 64) * A.shape[0]
-            <= (3 * trace_update.MAX_SCORE_CELLS) // 4
-            and hasattr(F, "fused_state")):
-        return _greedy_loop_fused(F, top, Q, k, mode, sign, fun, tol,
-                                  rescale, schedule, shift, checkpoint,
-                                  dataset, R=fused_steps)
-    return _greedy_loop(F, top, Q, k, mode, sign, fun, tol, rescale,
-                        schedule, shift, checkpoint, dataset,
-                        rescore_every=rescore_every,
-                        rescore_frac=rescore_frac)
+    return F
 
 
 def _replay_checkpoint(F, top, mode, rescale, checkpoint, dataset):
@@ -480,8 +667,12 @@ def _greedy_loop_fused(F, top, Q, k, mode, sign, fun, tol, rescale, schedule,
                             extra={"deltas": deltas, "iters": iters,
                                    "times": times})
 
-    # fixed candidate-table size for the whole sweep
-    nC_pad = Q + R
+    # fixed candidate-table size for the whole sweep, a multiple of the
+    # 'cands' axis of a sharded operator (its product splits the columns)
+    op0, _ = F.fused_state()
+    ba = getattr(op0, "batch_axis", None)
+    pad_mult = int(op0.mesh.shape[ba]) if ba else 1
+    nC_pad = -(-(Q + R) // pad_mult) * pad_mult
     # persistent-straggler bail-out: after two consecutive zero-accept
     # blocks, devolve to per-step scoring for the rest of the sweep
     consec_bad = 0

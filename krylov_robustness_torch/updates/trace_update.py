@@ -27,7 +27,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..funm.dense import eigvalsh_or_nan, trace_fun_difference_eigs
+from ..funm.dense import (
+    eigvalsh_or_nan,
+    trace_fun_difference_eigs,
+    trace_fun_update_dense,
+)
 from ..funm.scalar import get_fun
 from ..krylov.lanczos import (
     LanczosBlocks,
@@ -369,7 +373,22 @@ def trace_fun_update_edges(
     repeated edge."""
     edges = np.asarray(edges, np.int64).reshape(-1, 2)
     batch = len(edges)
+    # an operator whose product shards its columns over a 'cands' mesh axis
+    # (parallel/spmm_sharded.py) needs the batch divisible by that axis: pad
+    # with a repeated edge and slice the results back
+    ba = getattr(A, "batch_axis", None)
+    pad_mult = int(A.mesh.shape[ba]) if ba else 1
+    if batch % pad_mult:
+        padded = -(-batch // pad_mult) * pad_mult
+        r = trace_fun_update_edges(
+            A, np.concatenate([edges, np.repeat(edges[:1], padded - batch,
+                                                0)]),
+            sign, fun=fun, tol=tol, rescale=rescale, schedule=schedule,
+            phases=phases, shift=shift)
+        return TraceUpdateResult(delta=r.delta[:batch], iters=r.iters[:batch],
+                                 converged=r.converged[:batch])
     chunk = max(64, (int(MAX_SCORE_CELLS) // max(int(A.n), 1)) // 64 * 64)
+    chunk = max(pad_mult, chunk - chunk % pad_mult)
     if batch > chunk:
         parts = []
         for s in range(0, batch, chunk):
@@ -391,3 +410,10 @@ def trace_fun_update_edges(
     return trace_fun_update_batched(A, U0, B, fun=fun, tol=tol,
                                     schedule=schedule, phases=phases,
                                     shift=shift)
+
+
+def trace_fun_update_single(A_dense: torch.Tensor, U: torch.Tensor,
+                            B: torch.Tensor, fun="exp") -> torch.Tensor:
+    """Dense exact path (reference ``trace_fun_update.m:37-51``) for small n
+    or oracle checks: trace(f(A + U B Uᵀ) − f(A)) from two eigvalsh."""
+    return trace_fun_update_dense(A_dense, U, B, fun)

@@ -219,12 +219,19 @@ def test_krylov_miobi_matches_bruteforce(mode):
 
 
 def test_unported_backends_and_devices_raise(graph):
-    """'sharded' and 'sharded_bsr' are not ported and raise; 'banded' is
-    ported and runs; a missing or absent device raises."""
+    """Every backend of the JAX package is ported: 'sharded' and
+    'sharded_bsr' run (on a one-rank mesh without a process group; the
+    multi-rank cases are in tests/test_torch_parallel.py) with the COO
+    backend's picks, 'banded' runs; an unknown backend, a missing or absent
+    device raises."""
     A, c, _ = graph
-    for backend in ("sharded", "sharded_bsr"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            greedy_krylov(A, 2, 20, c, backend=backend, device="cpu")
+    rc = greedy_krylov(A, 2, 20, c, order="min", backend="coo", device="cpu")
+    for backend, op in (("sharded", "RowShardedMatrix"),
+                        ("sharded_bsr", "BsrRowShardedMatrix(f32)")):
+        r = greedy_krylov(A, 2, 20, c, order="min", backend=backend,
+                          device="cpu")
+        assert r.operator == op
+        np.testing.assert_array_equal(r.edges, rc.edges)
     r = greedy_krylov(A, 2, 20, c, order="min", backend="banded",
                       device="cpu")
     assert r.operator == "BandedEllOperator" and len(r.edges) == 2

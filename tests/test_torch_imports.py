@@ -33,6 +33,13 @@ def test_every_module_imports_without_jax():
             "krylov_robustness_torch.experiments.__main__",
             "krylov_robustness_torch.experiments.unweighted",
             "krylov_robustness_torch.experiments.weighted",
+            "krylov_robustness_torch.experiments.parity",
+            "krylov_robustness_torch.experiments.scaling",
+            "krylov_robustness_torch.experiments.trace_bench",
+            "krylov_robustness_torch.interop",
+            "krylov_robustness_torch.parallel.mesh",
+            "krylov_robustness_torch.parallel.selfcheck",
+            "krylov_robustness_torch.parallel.spmm_sharded",
             "krylov_robustness_torch.krylov.arnoldi",
             "krylov_robustness_torch.optimize.continuous",
             "krylov_robustness_torch.updates.entries",
