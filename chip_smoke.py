@@ -63,21 +63,33 @@ Phases, each of which raises on failure (exit code 1):
    x) and agree with scipy; each pass is held against its plain version and
    timed beside its bound; ``RowShardedMatrix`` coo and ell against scipy;
    ``sharded_bsr`` break k = 3 Q = 250 f32 picks as the 1-rank run's;
-11. scaling: ``measure_sharded_spmm`` at D = 1 on the road graph (coo and
+11. CONFIG 5 (launches none of K1-K4): the port's driver
+   (``experiments/config5.py``, the JAX package's
+   ``scripts/config5_sharded_sinh_rewire.py``) on the road graph as
+   ``Transport/road_standin.mat``, rewiring of trace(sinh(A)) on
+   ``RowShardedMatrix`` at the script's parameters (search space 30, 10
+   edges, maxiter 50, f64): on a 1-rank NCCL group, held against phase 9's
+   ``CooMatrix`` run (Omega identical, f'(A) entries within 1e-10, fval
+   within 1e-8, the same iterations), then on 2 gloo ranks spawned on the
+   card (Omega, every Taylor plan, iterate and fval identical on both,
+   fval within 1e-8 of 1 rank); per run the ``[config5]`` lines give ms a
+   ``fun_and_grad``, its all-gather share, the device's busy share, the
+   peak device memory and the score with its Hutchinson normalizer;
+12. scaling: ``measure_sharded_spmm`` at D = 1 on the road graph (coo and
    ell, b = 8 and 512) — one card shows a rate, not scaling;
-12. surface: the ``trace`` bench (f64) on the stand-ins written as .mat and
+13. surface: the ``trace`` bench (f64) on the stand-ins written as .mat and
    a small one below the dense cutoff, the ``expmv`` parity row on that one
    (≤ 1e-6), ``EllMatrix @ x`` on the card against scipy;
-13. replay: copies of the inputs of the last launch of each kernel at each
+14. replay: copies of the inputs of the last launch of each kernel at each
    shape of phases 4-8 and 10 (outside the bench's timed lanes), rerun
    through the kernel and its plain version (for K1, K2 and K4 over the
    tiles or blocks that their row index implies, for K3 over its ELL
    tables).
 
-Each path (4-5, 6, 7, 8, 9, 10) runs with every launch count set to 0 just
-before it and read just after; the 2-rank half of path 10 runs in its own
-processes, which check and report their own counts. The line before the
-last is a JSON object with one entry per kernel (its count on the path that
+Each path (4-5, 6, 7, 8, 9, 10, 11) runs with every launch count set to 0
+just before it and read just after; the 2-rank halves of paths 10 and 11 run
+in their own processes, which check and report their own counts. The line
+before the last is a JSON object with one entry per kernel (its count on the path that
 runs it, errors and times of phase 3); the last line is ``{"ok": true, "device": {...}}``. Without CUDA
 the script exits with code 2 and prints no result. Imports nothing of JAX.
 """
@@ -1207,10 +1219,10 @@ def vermont_problem(dev, A):
     return A, M, nrm, prob, time.perf_counter() - t0
 
 
-def weighted_vermont(dev, A) -> None:
+def weighted_vermont(dev, A) -> dict:
     """:func:`vermont_problem` optimized at the script's maxiter = 50,
     checked against an independent objective and central differences of
-    it."""
+    it. Returns the problem and the optimizer's result."""
     from krylov_robustness_torch.funm.expmv import (
         expmv,
         select_taylor_degree,
@@ -1287,18 +1299,20 @@ def weighted_vermont(dev, A) -> None:
     print(f"[vermont] Δtrace sinh {-res.fval:.10e}, trace(sinh(A)) ≈ "
           f"{float(tr_sinh):.6e} (Hutchinson, tol 1e-3): score "
           f"{-res.fval / float(tr_sinh) * 100:.6f}%")
+    return {"problem": prob, "result": res}
 
 
-def phase_weighted(dev, road, root: Path) -> None:
+def phase_weighted(dev, road, root: Path, keep: dict) -> None:
     """Tables 5-6: the continuous path on the power-grid stand-ins (f64 on
-    the card against the CPU, then the CLI in f32), then at Vermont's scale;
-    every operator it multiplies with is a ``CooMatrix``."""
+    the card against the CPU, then the CLI in f32), then at Vermont's scale
+    (its problem and result kept in ``keep['vermont']``); every operator it
+    multiplies with is a ``CooMatrix``."""
     t0 = time.perf_counter()
     with operators_seen() as seen:
         grids = write_grids(root)
         f64 = weighted_f64(dev, grids, root)
         weighted_cli(dev, grids, root, f64)
-        weighted_vermont(dev, road)
+        keep["vermont"] = weighted_vermont(dev, road)
     print(f"[weighted] operators {sorted(seen)}; path wall "
           f"{time.perf_counter() - t0:.1f} s")
     check(seen == {"CooMatrix"}, f"weighted path operators {sorted(seen)}")
@@ -1427,6 +1441,106 @@ def sharded_path(dev, A, root: Path, card: str, stats: dict) -> None:
     sharded_two_ranks(A, root, card, sharded_one_rank(dev, A, root), stats)
 
 
+# -- CONFIG 5 on the row-sharded operator ------------------------------------
+def config5_report(label: str, out: dict, card: str) -> None:
+    """The ``[config5]`` lines of one rank's run."""
+    ms = [e[3] * 1e3 for e in out["evals"]]
+    c = out["costs"]
+    tr_p, tr_m = out["traces"]
+    print(f"[config5] {label} on {card}: {out['operator']} over "
+          f"{out['world']} rank(s), {out['device']}; build "
+          f"{out['time_build']:.2f} s, optimize {out['time_opt']:.2f} s "
+          f"({out['iterations']} it, {len(ms)} fun_and_grad calls, median "
+          f"{statistics.median(ms):.1f} ms); {out['message']}")
+    print(f"[config5] {label}: Omega {out['Omega'].tolist()}; Taylor plans "
+          f"(t, m, s, mu) {out['plans']}; fval {out['fval']!r}")
+    print(f"[config5] {label}: one fun_and_grad at the optimum "
+          f"{c['ms']:.1f} ms, of it {c['gathers']} all-gathers "
+          f"{c['gather_ms']:.1f} ms ({100 * c['gather_share']:.1f}%); "
+          f"profiled {c['profiled_ms']:.1f} ms, device busy "
+          f"{100 * c['busy_share']:.1f}%; peak device memory of the run "
+          f"{out['peak_bytes'] / 2**30:.3f} GiB")
+    print(f"[config5] {label}: Δtrace sinh {-out['fval']:.10e}, "
+          f"trace(sinh(A)) ≈ ({tr_p:.10e} − {tr_m:.10e})/2 = "
+          f"{out['tr_sinh']:.10e} (Hutchinson over expmv, t = ±1, tol "
+          f"1e-3): score {out['score'] * 100:.6f}%")
+
+
+def phase_config5(dev, A, root: Path, card: str, vermont: dict) -> None:
+    """The JAX package's CONFIG 5 (``scripts/config5_sharded_sinh_rewire.py``)
+    through the port's driver, ``experiments/config5.py``, on the road graph
+    written as ``Transport/road_standin.mat``, at the script's parameters
+    (search space 30, 10 modifiable edges, maxiter 50, f64): a 1-rank NCCL
+    process group in this process, held against phase 9's ``CooMatrix`` run
+    of the same protocol, then 2 gloo ranks spawned on the card, held
+    against each other and against the 1-rank run."""
+    import torch.distributed as dist
+
+    from krylov_robustness_torch.parallel import selfcheck
+
+    t0 = time.perf_counter()
+    write_mat(root, "Transport", "road_standin", A)
+    kw = dict(dataset="road_standin", measure=True, device_kind="cuda")
+    dist.init_process_group(
+        "nccl", init_method=f"file://{root}/nccl_store_config5", rank=0,
+        world_size=1, device_id=dev)
+    try:
+        with operators_seen() as seen:
+            one = selfcheck.run_config5(rank=0, out_dir=root / "out_c5_1",
+                                        **kw)
+    finally:
+        dist.destroy_process_group()
+    config5_report("1 rank (nccl)", one, card)
+    check(seen == {"RowShardedMatrix"}, f"config5: operators {seen}")
+    with open(next((root / "out_c5_1").glob("results_config5_*.csv")),
+              newline="") as f:
+        rows = list(csv.DictReader(f))
+    print(f"[config5] 1 rank: result row {rows}")
+    check(len(rows) == 1 and rows[0]["n_devices"] == "1",
+          f"config5: result rows {rows}")
+    prob, res = vermont["problem"], vermont["result"]
+    errs = {"dfA": rel(one["dfA"], prob.dfA),
+            "fval": abs(one["fval"] - res.fval) / abs(res.fval)}
+    print(f"[config5] 1 rank against phase 9's CooMatrix run: Omega "
+          f"identical {np.array_equal(one['Omega'], prob.Omega)}, dfA rel {errs['dfA']:.3e} (gate 1e-10), fval {one['fval']!r} "
+          f"vs {res.fval!r} rel {errs['fval']:.3e} (gate 1e-8), iterations "
+          f"{one['iterations']} vs {res.iterations}")
+    check(np.array_equal(one["Omega"], prob.Omega), "config5: Omega differs "
+          "from the CooMatrix run's")
+    check(errs["dfA"] <= 1e-10 and errs["fval"] <= 1e-8,
+          f"config5 1 rank against CooMatrix: {errs}")
+    check(one["iterations"] == res.iterations, "config5: iterations differ "
+          "from the CooMatrix run's")
+    check(np.isfinite(one["score"]) and one["score"] > 0,
+          f"config5: score {one['score']}")
+
+    t1 = time.perf_counter()
+    outs = selfcheck.launch("run_config5", 2, root, timeout=600,
+                            out_dir=root / "out_c5_2", **kw)
+    for rank, out in enumerate(outs):
+        config5_report(f"2 ranks (gloo, one card) rank {rank}", out, card)
+        check(out["operator"] == "RowShardedMatrix" and out["world"] == 2,
+              f"config5 rank {rank}: {out['operator']} over {out['world']}")
+    a, b = outs
+    same = {key: all(np.array_equal(u, v) for u, v in zip(
+        np.atleast_1d(a[key]), np.atleast_1d(b[key])))
+        for key in ("Omega", "dfA", "x", "fval", "iterations", "traces")}
+    same["plans"] = a["plans"] == b["plans"]
+    same["iterates"] = len(a["evals"]) == len(b["evals"]) and all(
+        np.array_equal(ea[0], eb[0]) and ea[1] == eb[1]
+        for ea, eb in zip(a["evals"], b["evals"]))
+    gap = abs(a["fval"] - one["fval"]) / abs(one["fval"])
+    print(f"[config5] 2 ranks: identical on both ranks {same}; fval "
+          f"{a['fval']!r} against 1 rank {one['fval']!r}: rel {gap:.3e} "
+          f"(gate 1e-8); Omega as 1 rank's: "
+          f"{np.array_equal(a['Omega'], one['Omega'])}; phase wall "
+          f"{time.perf_counter() - t1:.1f} s")
+    check(all(same.values()), f"config5: the two ranks differ: {same}")
+    check(gap <= 1e-8, f"config5: 2 ranks' fval off the 1 rank's by "
+          f"{gap:.3e}")
+    print(f"[config5] wall {time.perf_counter() - t0:.1f} s")
+
+
 def phase_scaling(dev, A, card: str) -> None:
     """``measure_sharded_spmm`` at D = 1 on the road graph (one card holds
     one rank: a rate, not scaling), both layouts, b = 8 and 512, f32."""
@@ -1538,10 +1652,13 @@ def run(dev, root: Path) -> int:
         budget = drive("budget", phase_budget, dev, graphs["road"], root)
         tables = drive("tables", phase_tables, graphs["hub"], root)
         benched = drive("bench", phase_bench, card, capture)
+        kept = {}
         weighted = drive("weighted", phase_weighted, dev, graphs["road"],
-                         root)
+                         root, kept)
         sharded = drive("sharded", sharded_path, dev, graphs["road"], root,
                         card, stats)
+        config5 = drive("config5", phase_config5, dev, graphs["road"], root,
+                        card, kept["vermont"])
     phase_scaling(dev, graphs["road"], card)
     phase_surface(dev, graphs, root)
     check(sharded["K1"] and sharded["K2"],
@@ -1554,6 +1671,8 @@ def run(dev, root: Path) -> int:
           f"bench path: a kernel was not launched: {benched}")
     check(not any(weighted.values()),
           f"weighted path: a kernel was launched: {weighted}")
+    check(not any(config5.values()),
+          f"config5 path: a kernel was launched: {config5}")
     replayed = capture.replay()
     check("K4" in replayed, "replay: no K4 launch was kept")
     entries = (("K1", "K1 tile_spmm_bf16 (bf16x2)", greedy,

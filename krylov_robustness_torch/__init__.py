@@ -29,7 +29,9 @@ Layer map (every module of the JAX package has its counterpart):
                the super-tile packing, with the all-gather overlapped)
   experiments  the Tables 2-3, Figures 1-4 and Tables 5-6 drivers, the
                trace, parity and scaling benches, and their CLI
-               (``python -m krylov_robustness_torch.experiments``)
+               (``python -m krylov_robustness_torch.experiments``); the
+               CONFIG 5 driver (``... .experiments.config5``, weighted
+               sinh rewiring on the row-sharded operator)
   utils        device resolution, finite checks, configs, result logs,
                checkpoints
   interop      build port objects from arrays exported by the JAX package

@@ -5,7 +5,9 @@ reference ``functions/expmv.m`` + ``functions/select_taylor_degree.m``).
 The degree/stage selection is a host-side plan computed once per operator
 from norm estimates. The Taylor recurrence ``b ← (t/(s·k))·A·b; f ← f + b``
 runs on the operator's device over (n, width) blocks; its data-dependent
-early exit (``expmv.m:81-88``) is one host check per term.
+early exit (``expmv.m:81-88``) is one host check per term. On a row-sharded
+operator the plan is built from the whole matrix (``host_coo``) on every
+rank, and the ranks' plans are checked equal.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..parallel.mesh import mesh_of, same_on_every_rank
 from .normest import norm_inf_rowsum, normAm_nonneg, normest1_power
 from .theta import THETA_DOUBLE
 
@@ -60,9 +63,8 @@ def select_taylor_degree(
         raise ValueError("invalid p_max or m_max")
     theta = THETA_DOUBLE  # double table; prec only changes the loop tol
     n = A.n
-    rows = A.rows.cpu().numpy()
-    cols = A.cols.cpu().numpy()
-    vals = A.vals.cpu().numpy()
+    # the whole matrix on every rank of a row-sharded operator
+    rows, cols, vals = A.host_coo()
     on_diag = rows == cols
     mu = float(np.sum(vals[on_diag])) / n if shift else 0.0
 
@@ -112,6 +114,7 @@ def select_taylor_degree(
     if not np.isfinite(cost):
         cost = 0.0
     s = max(int(math.ceil(cost / m)), 1)
+    same_on_every_rank(mesh_of(A), "the Taylor plan (m, s, mu)", m, s, mu)
     return ExpmvPlan(m=m, s=s, t=float(t), mu=mu, prec=prec, shift=shift)
 
 

@@ -18,8 +18,12 @@ import torch
 
 
 def _abs_colsum(A) -> torch.Tensor:
-    out = torch.zeros((A.n,), dtype=A.dtype, device=A.device)
-    return out.index_add_(0, A.cols, A.vals.abs())
+    """Column sums of |A| on A's device, from the whole matrix's COO triple
+    (``host_coo``, which a row-sharded operator gathers on every rank)."""
+    _, cols, vals = A.host_coo()
+    out = np.zeros(A.n, vals.dtype)
+    np.add.at(out, cols, np.abs(vals))
+    return torch.as_tensor(out, device=A.device)
 
 
 def norm1(A) -> torch.Tensor:
@@ -143,8 +147,10 @@ def normest1_power(matvec, n: int, m: int = 1, t: int = 2,
 
 
 def normest2_host(A_scipy, tol: float = 1e-2) -> float:
-    """‖A‖₂ of a symmetric sparse matrix via scipy eigsh (largest |λ|)."""
+    """‖A‖₂ of a symmetric sparse matrix via scipy eigsh (largest |λ|),
+    started from the ones vector: the same value in every process (ARPACK's
+    own start vector is random in each)."""
     A = sp.csr_matrix(A_scipy).astype(np.float64)
     w = spla.eigsh(A, k=1, which="LM", return_eigenvectors=False,
-                   tol=max(tol * 1e-2, 1e-10))
+                   tol=max(tol * 1e-2, 1e-10), v0=np.ones(A.shape[0]))
     return float(abs(w[0]))

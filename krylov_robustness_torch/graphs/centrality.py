@@ -42,9 +42,13 @@ def eig_spectral_radius(A, tol: float = 1e-8, max_iter: int = 2000):
 
 
 def degree_centrality(A):
-    """Row sums (``compute_centrality.m:18-19``)."""
-    out = torch.zeros((A.n,), dtype=A.dtype, device=A.device)
-    return out.index_add_(0, A.rows, A.vals)
+    """Row sums (``compute_centrality.m:18-19``) on A's device, from the
+    whole matrix's COO triple (``host_coo``, which a row-sharded operator
+    gathers on every rank)."""
+    rows, _, vals = A.host_coo()
+    out = np.zeros(A.n, vals.dtype)
+    np.add.at(out, rows, vals)
+    return torch.as_tensor(out, device=A.device)
 
 
 def pagerank_centrality(A, alpha: float = 0.85, tol: float = 1e-12,
@@ -106,7 +110,9 @@ def compute_centrality(A, kind: str = "eig") -> np.ndarray:
 
 def compute_centrality_host(A_scipy, kind: str = "eig") -> np.ndarray:
     """'eig' (the paper experiments' choice, ``test_unweighted_break.m:63``),
-    'deg', 'pr', 'res' or 'exp'; anything else falls back to 'eig'."""
+    'deg', 'pr', 'res' or 'exp'; anything else falls back to 'eig'. The
+    eigsh calls start from the ones vector, so that every process computes
+    the same centrality (ARPACK's own start vector is random in each)."""
     A = sp.csr_matrix(A_scipy).astype(np.float64)
     n = A.shape[0]
     if kind == "deg":
@@ -125,7 +131,8 @@ def compute_centrality_host(A_scipy, kind: str = "eig") -> np.ndarray:
             x = y
         return np.abs(x)
     if kind == "res":
-        rho = np.abs(spla.eigsh(A, k=1, return_eigenvectors=False))[0]
+        rho = np.abs(spla.eigsh(A, k=1, return_eigenvectors=False,
+                                v0=np.ones(n)))[0]
         alpha = 1.0 / (2 * rho)
         x = np.ones(n)
         for _ in range(500):
@@ -139,5 +146,5 @@ def compute_centrality_host(A_scipy, kind: str = "eig") -> np.ndarray:
         import scipy.linalg
 
         return np.diag(scipy.linalg.expm(A.toarray()))
-    _, v = spla.eigsh(A, k=1, which="LA")
+    _, v = spla.eigsh(A, k=1, which="LA", v0=np.ones(n))
     return np.abs(v[:, 0])

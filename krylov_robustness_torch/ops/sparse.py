@@ -92,6 +92,12 @@ class CooMatrix:
              (self.rows[:k].cpu().numpy(), self.cols[:k].cpu().numpy())),
             shape=self.shape)
 
+    def host_coo(self):
+        """(rows, cols, vals) as numpy: the view that the host plan builders
+        read, shared with the row-sharded operator."""
+        return tuple(t.cpu().numpy() for t in (self.rows, self.cols,
+                                                self.vals))
+
     def todense(self) -> torch.Tensor:
         out = torch.zeros((self.n, self.n), dtype=self.dtype,
                           device=self.device)

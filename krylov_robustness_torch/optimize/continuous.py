@@ -15,6 +15,13 @@ device:
   ``trace_fun_update`` for the objective, ``fun_and_grad_krylov_fun.m:64-65``),
 * exact Hessian: batched Fréchet factorizations
   (``hessianfcn_exp.m`` / ``hessianfcn_fun.m``).
+
+On a row-sharded operator (``parallel/spmm_sharded.py::RowShardedMatrix``)
+every rank runs the optimizer on its replicated copy, so every host decision
+must agree or the ranks' collectives diverge: the search space, each
+trust-constr iterate and each objective and gradient are checked across the
+ranks (``parallel/mesh.py::same_on_every_rank``), and the exact Hessian,
+computed on a single-device copy of A + Δ, is taken from the first rank.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from ..funm.normest import normest2
 from ..funm.scalar import derivative_of, get_fun, value_at
 from ..graphs.top_edges import find_top_edges, find_top_missing_edges
 from ..ops.sparse import CooMatrix
+from ..parallel.mesh import from_first_rank, mesh_of, same_on_every_rank
 from ..updates.entries import entries_of_f_expmv, function_multiple_entries
 from ..updates.frechet import multiple_frechet_eval
 from ..updates.fun_update import fun_update
@@ -194,6 +202,8 @@ def build_problem(
         ub = np.ones(len(E))
     else:
         raise ValueError(f"unknown method {method!r}")
+    same_on_every_rank(mesh_of(A), "the search space (Omega, f'(A) entries)",
+                       E, dfA)
     return ContinuousProblem(Omega=E, dfA=dfA, lb=lb, ub=ub,
                              budget=total_weight)
 
@@ -225,22 +235,28 @@ def optimize_weights(
     if nrmA is None:
         nrmA = float(normest2(A))
     k = len(problem.Omega)
-    # densified once for fun_update's dense fallback at n ≤ 130
-    A_dense = (torch.as_tensor(A_scipy.toarray(), dtype=A.dtype,
-                               device=A.device)
-               if A_scipy.shape[0] <= 130 else None)
+    mesh = mesh_of(A)
+    # densified once for fun_update's dense fallback at n ≤ 130, at the
+    # operator's size (a row-sharded one pads its rows with zeros)
+    A_dense = None
+    if A_scipy.shape[0] <= 130:
+        n = A_scipy.shape[0]
+        A_dense = torch.zeros((A.n, A.n), dtype=A.dtype, device=A.device)
+        A_dense[:n, :n] = torch.as_tensor(A_scipy.toarray())
 
     def obj(x):
-        return fun_and_grad(
+        same_on_every_rank(mesh, "the trust-constr iterate", x)
+        f, g = fun_and_grad(
             x, A, problem.Omega, problem.dfA, fun=fun, tol=tol, nrmA=nrmA,
             A_dense=A_dense,
         )
+        same_on_every_rank(mesh, "the objective and gradient", f, g)
+        return f, g
 
     kwargs = {}
     if use_hessian:
-        kwargs["hess"] = lambda x: hessian(
-            x, A_scipy, problem.Omega, fun=fun, tol=tol, device=A.device
-        )
+        kwargs["hess"] = lambda x: from_first_rank(mesh, lambda: hessian(
+            x, A_scipy, problem.Omega, fun=fun, tol=tol, device=A.device))
     res = minimize(
         obj,
         np.zeros(k),

@@ -13,13 +13,21 @@ over those groups (NCCL on the card, gloo on the CPU).
 
 Without an initialized process group a mesh has one rank and its collectives
 are the identity, like a 1-device JAX mesh.
+
+A JAX program makes each host decision once; here every rank makes it on
+its own copy. :func:`same_on_every_rank` checks that the ranks decided
+alike (a mismatch raises on all of them, before their collectives diverge),
+and :func:`from_first_rank` hands every rank the first rank's value of an
+input computed with per-process randomness.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -147,6 +155,61 @@ def maybe_init_distributed() -> None:
         dist.init_process_group("nccl", init_method="env://")
     else:
         dist.init_process_group("gloo", init_method="env://")
+
+
+def mesh_of(A) -> Mesh | None:
+    """The mesh of a row-sharded operator; None for a single-device one."""
+    return getattr(A, "mesh", None)
+
+
+def _lines(mesh: Mesh | None) -> list:
+    """The process group of this rank's line along each axis with more than
+    one rank."""
+    if mesh is None:
+        return []
+    return [g for g in mesh.groups
+            if g is not None and dist.get_world_size(g) > 1]
+
+
+def same_on_every_rank(mesh: Mesh | None, what: str, *values) -> None:
+    """Raise on every rank unless each rank of ``mesh`` holds bit for bit
+    the same ``values`` (arrays or numbers; a digest of each rank's is
+    all-gathered along every axis). Every rank makes the host decisions of
+    the Krylov, funm and optimizer layers on its own replicated copy; where
+    two ranks decided differently their collectives would diverge, so a
+    mismatch stops them all. A no-op without process groups."""
+    lines = _lines(mesh)
+    if not lines:
+        return
+    h = hashlib.sha256()
+    for v in values:
+        a = np.ascontiguousarray(np.asarray(v))
+        h.update(f"{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+    mine = h.hexdigest()
+    for g in lines:
+        seen = [None] * dist.get_world_size(g)
+        dist.all_gather_object(seen, mine, group=g)
+        if len(set(seen)) > 1:
+            raise RuntimeError(f"the ranks disagree on {what}: digests "
+                               f"{[d[:12] for d in seen]}")
+
+
+def from_first_rank(mesh: Mesh | None, fn):
+    """``fn()`` computed on the mesh's first rank only and broadcast to
+    every rank of the mesh: host inputs that each rank would otherwise
+    compute with its own randomness (ARPACK's start vector in ``eigsh``).
+    The broadcasts run along the last axis first, so the first rank's value
+    reaches every line of the earlier axes."""
+    lines = _lines(mesh)
+    if not lines:
+        return fn()
+    first = all(c == 0 for c in mesh.coords)
+    box = [fn() if first else None]
+    for g in reversed(lines):
+        dist.broadcast_object_list(box, src=dist.get_global_rank(g, 0),
+                                   group=g)
+    return box[0]
 
 
 def row_sharded(mesh: Mesh, axis: str = "rows", *, n: int) -> slice:

@@ -10,7 +10,11 @@ edges. :func:`launch` starts a world of ranks as fresh processes, runs one
 function of this module on each and returns what each returned; a rank
 that hangs fails the launch at its timeout instead of blocking its caller.
 Functions given to :func:`launch` must live in an importable module (a
-spawned process unpickles them by name), which is why the checks live here.
+spawned process unpickles them by name), which is why the checks live here:
+the distributed layer's, and CONFIG 5's — the weighted path on
+``RowShardedMatrix`` (:func:`check_sharded_funm`,
+:func:`check_config5_problem`) and the driver
+``experiments/config5.py`` as a user runs it (:func:`run_config5`).
 """
 
 from __future__ import annotations
@@ -28,7 +32,14 @@ import torch
 import torch.distributed as dist
 
 from ..ops import bsr_super
-from .mesh import default_mesh, make_mesh, make_mesh_2d, row_sharded
+from .mesh import (
+    default_mesh,
+    from_first_rank,
+    make_mesh,
+    make_mesh_2d,
+    row_sharded,
+    same_on_every_rank,
+)
 from .spmm_sharded import BsrRowShardedMatrix, RowShardedMatrix, psum_dot
 
 
@@ -299,6 +310,192 @@ def check_env_init(rank) -> dict:
 
 def check_dryrun(rank, device_kind="cpu") -> dict:
     return dryrun(_device(device_kind))
+
+
+# -- the weighted path on the row-sharded operator (CONFIG 5) ---------------
+def check_sharded_funm(rank, A, X, omega, A_trace, edges,
+                       device_kind="cpu") -> dict:
+    """The host plan builders and the exp-family actions on the row-sharded
+    COO operator of ``A`` over every rank: the Taylor plans at t = ±1 for
+    X's width, ``expmv`` of X under each, ``entries_of_f_expmv`` (exp and
+    sinh) at ``omega``, ``degree_centrality``; then
+    ``trace_fun_update_edges`` (removal) of ``edges`` on the operator of
+    ``A_trace``."""
+    from ..funm.expmv import expmv, select_taylor_degree
+    from ..graphs.centrality import degree_centrality
+    from ..updates.entries import entries_of_f_expmv
+    from ..updates.trace_update import trace_fun_update_edges
+
+    dev = _device(device_kind)
+    mesh = make_mesh(device=dev)
+    M = RowShardedMatrix.from_scipy(A, mesh)
+    xt = torch.as_tensor(X, device=dev)
+    out = {"plans": {}, "expmv": {}, "entries": {}}
+    for t in (1.0, -1.0):
+        p = select_taylor_degree(M, t=t, b_cols=X.shape[1])
+        out["plans"][t] = (p.m, p.s, p.mu)
+        out["expmv"][t] = expmv(M, xt, t=t, plan=p).cpu().numpy()
+    for fun in ("exp", "sinh"):
+        out["entries"][fun] = entries_of_f_expmv(M, omega, fun=fun)[0] \
+            .cpu().numpy()
+    out["degree"] = degree_centrality(M).cpu().numpy()
+    T = RowShardedMatrix.from_scipy(A_trace, mesh)
+    out["delta"] = trace_fun_update_edges(T, edges, sign=-1.0, tol=1e-4) \
+        .delta.cpu().numpy()
+    return out
+
+
+def check_config5_problem(rank, A, c, nrm, search_space, modifiable_edges,
+                          maxiter, device_kind="cpu") -> dict:
+    """The CONFIG 5 problem (rewire, sinh, expmv entries, ndense 0) at a
+    small size on the row-sharded operator over every rank, with the
+    centrality ``c`` and ‖A‖ ``nrm`` given: the search space, the
+    optimizer's result, the exact Hessian at its x (a single-device copy of
+    A + Δ on each rank), and two iterations with that Hessian."""
+    from ..optimize.continuous import (
+        build_problem,
+        hessian,
+        optimize_weights,
+    )
+
+    dev = _device(device_kind)
+    M = RowShardedMatrix.from_scipy(A, make_mesh(device=dev))
+    prob = build_problem(
+        A, M, c, "rewire", fun="sinh", search_space=search_space,
+        modifiable_edges=modifiable_edges, heur_order="min",
+        total_weight=10.0, ndense=0, tol=1e-6 * float(np.sinh(nrm)),
+        entries_method="expmv")
+    kw = dict(fun="sinh", tol=1e-6, nrmA=nrm)
+    res = optimize_weights(A, M, prob, maxiter=maxiter, **kw)
+    res_h = optimize_weights(A, M, prob, maxiter=2, use_hessian=True, **kw)
+    return dict(Omega=prob.Omega, dfA=prob.dfA, lb=prob.lb, ub=prob.ub,
+                x=res.x, fval=res.fval, iterations=res.iterations,
+                hessian=hessian(res.x, A, prob.Omega, fun="sinh", tol=1e-6,
+                                device=dev),
+                x_hessian=res_h.x, fval_hessian=res_h.fval)
+
+
+def check_rank_agreement(rank) -> dict:
+    """``same_on_every_rank`` over every rank on a value that differs
+    between ranks (the error every rank raises) and on one that does not;
+    ``from_first_rank`` of the rank's own number."""
+    mesh = make_mesh(device="cpu")
+    try:
+        same_on_every_rank(mesh, "the rank", rank)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    same_on_every_rank(mesh, "a shared value", np.arange(4), 0.5)
+    return dict(raised=raised, first=from_first_rank(mesh, lambda: rank))
+
+
+def _evaluation_costs(M, prob, x, nrm, dev) -> dict:
+    """One ``fun_and_grad`` at ``x`` (after a warm-up call) with every
+    all-gather timed (synchronized before and after, so that it holds no
+    product's kernels), then one under ``torch.profiler``: milliseconds,
+    the all-gathers' share, and the device's busy share (its own events'
+    time over the wall; None on the CPU)."""
+    from unittest import mock
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..optimize import continuous
+    from . import spmm_sharded
+
+    gathers = []
+    gather = spmm_sharded._gather
+
+    def timed(*args, **kwargs):
+        _sync(dev)
+        t = time.perf_counter()
+        y = gather(*args, **kwargs)
+        _sync(dev)
+        gathers.append(time.perf_counter() - t)
+        return y
+
+    def call():
+        _sync(dev)
+        t = time.perf_counter()
+        continuous.fun_and_grad(x, M, prob.Omega, prob.dfA, fun="sinh",
+                                tol=1e-6, nrmA=nrm)
+        _sync(dev)
+        return time.perf_counter() - t
+
+    call()
+    with mock.patch.object(spmm_sharded, "_gather", timed):
+        wall = call()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if dev.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        wall_p = call()
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+    return dict(ms=wall * 1e3, gathers=len(gathers),
+                gather_ms=sum(gathers) * 1e3,
+                gather_share=sum(gathers) / wall,
+                profiled_ms=wall_p * 1e3,
+                busy_share=(busy_us / 1e6 / wall_p if dev.type == "cuda"
+                            else None))
+
+
+def run_config5(rank, dataset, out_dir, measure=False,
+                device_kind="cpu") -> dict:
+    """The CONFIG 5 driver as a user runs it (``config5.main``: ``dataset``
+    from the data root, ``n_devices`` the world size, ``--cpu`` for
+    ``device_kind='cpu'``) on every rank of the process group, recording
+    each Taylor plan built (t, m, s, mu) and each objective evaluation (x,
+    f, gradient, seconds). With ``measure``, the peak device memory of the
+    run and :func:`_evaluation_costs` at its optimum."""
+    from unittest import mock
+
+    from ..experiments import config5
+    from ..optimize import continuous
+    from ..updates import entries
+
+    dev = _device(device_kind)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    argv = [dataset, str(world), "--out-dir", str(out_dir)]
+    argv += ["--cpu"] if dev.type == "cpu" else []
+    plans, evals, kept = [], [], {}
+    select, run = config5.select_taylor_degree, config5.run
+    fun_and_grad = continuous.fun_and_grad
+
+    def plan(A, t=1.0, **kwargs):
+        p = select(A, t=t, **kwargs)
+        plans.append((p.t, p.m, p.s, p.mu))
+        return p
+
+    def evaluation(x, *args, **kwargs):
+        t = time.perf_counter()
+        f, g = fun_and_grad(x, *args, **kwargs)
+        evals.append((np.array(x), f, g, time.perf_counter() - t))
+        return f, g
+
+    def keep(*args, **kwargs):
+        kept.update(run(*args, **kwargs))
+        return kept
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    with mock.patch.object(config5, "select_taylor_degree", plan), \
+            mock.patch.object(entries, "select_taylor_degree", plan), \
+            mock.patch.object(continuous, "fun_and_grad", evaluation), \
+            mock.patch.object(config5, "run", keep):
+        config5.main(argv)
+    M, prob, res = kept["operator"], kept["problem"], kept["result"]
+    got = dict(operator=type(M).__name__, world=M.mesh.shape["rows"],
+               device=str(M.device), Omega=prob.Omega, dfA=prob.dfA,
+               x=res.x, fval=res.fval, iterations=res.iterations,
+               message=res.message, plans=plans, evals=evals,
+               traces=kept["traces"], tr_sinh=kept["tr_sinh"],
+               score=kept["score"], nrmA=kept["nrmA"],
+               time_build=kept["time_build"], time_opt=kept["time_opt"])
+    if measure:
+        if dev.type == "cuda":
+            got["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        got["costs"] = _evaluation_costs(M, prob, res.x, kept["nrmA"], dev)
+    return got
 
 
 def run_checks(rank, plan) -> dict:

@@ -29,7 +29,9 @@ The outer ``matmul``/``@`` API takes and returns *replicated* (n, b) blocks,
 as the JAX package's does, so the Krylov, funm and greedy layers run
 unchanged — and redundantly, on every rank: each rank computes its row
 block (and, on a ``cands`` axis, its column block) from the replicated x and
-all-gathers y.
+all-gathers y. The host plan builders read the whole matrix's COO triple
+through :meth:`RowShardedMatrix.host_coo` (the JAX operator's global
+``rows``/``cols``/``vals``), which ``CooMatrix`` shares.
 """
 
 from __future__ import annotations
@@ -184,6 +186,7 @@ class RowShardedMatrix(_RowSharded):
     layout: str = "coo"
 
     def __post_init__(self):
+        self._host_coo = None  # (vals' version, the gathered triple)
         lo = self.mesh.index(self.axis) * self.rows_per_shard
         # entries whose column lies in this rank's rows: the pass that needs
         # no gathered x
@@ -206,7 +209,8 @@ class RowShardedMatrix(_RowSharded):
 
     @property
     def rows(self) -> torch.Tensor:
-        """Global row ids of this rank's slots (COO layout)."""
+        """Global row ids of this rank's slots (COO layout); the whole
+        matrix's are :meth:`host_coo`'s."""
         return self.rows_local + self.mesh.index(self.axis) * \
             self.rows_per_shard
 
@@ -294,6 +298,22 @@ class RowShardedMatrix(_RowSharded):
         g = self.mesh.group(self.axis)
         return tuple(_gather(t, g).cpu().numpy() for t in (
             self.rows, self.cols, self.vals[:self.nnz_shard]))
+
+    def host_coo(self):
+        """The whole matrix's COO triple as numpy on every rank — the view
+        that the host plan builders read (``funm.expmv``, the centralities,
+        the norms), which the JAX operator's global ``rows``/``cols``/``vals``
+        give there: :meth:`gather_coo`, a collective over the rows axis, kept
+        until ``vals`` is next edited in place (its version counter, which
+        every rank advances alike) or replaced."""
+        if self.layout != "coo":
+            raise NotImplementedError(
+                "host_coo() requires the COO layout: an 'ell' shard keeps no "
+                "COO slots (nor does the JAX package's)")
+        key = self.vals._version
+        if self._host_coo is None or self._host_coo[0] != key:
+            self._host_coo = (key, self.gather_coo())
+        return self._host_coo[1]
 
     def todense(self) -> torch.Tensor:
         """Replicated dense (n, n) view (COO layout): each rank's row block,

@@ -14,6 +14,10 @@ packings equal array for array; greedy picks identical, rob_variation within
 1e-10 relative and A_new identical (f64).
 """
 
+import csv
+import os
+from unittest import mock
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -23,6 +27,7 @@ import jax.numpy as jnp
 
 from helpers import random_graph
 from krylov_robustness_torch import interop
+from krylov_robustness_torch.experiments import config5
 from krylov_robustness_torch.graphs.centrality import compute_centrality_host
 from krylov_robustness_torch.graphs.top_edges import find_top_missing_edges
 from krylov_robustness_torch.optimize import greedy as tgreedy
@@ -43,6 +48,16 @@ from krylov_robustness_tpu.parallel.spmm_sharded import (
 )
 from krylov_robustness_tpu.parallel.spmm_sharded import (
     RowShardedMatrix as JRowSharded,
+)
+from test_torch_config5 import (
+    FUNM,
+    PROBLEM,
+    check_funm,
+    check_problem,
+    coo_problem,
+    jax_funm,
+    jax_problem,
+    write_transport,
 )
 from test_torch_greedy import path_graph
 
@@ -96,8 +111,26 @@ def _plan(rows=None, batch=None):
 
 @pytest.fixture(scope="module")
 def world2(tmp_path_factory):
-    return selfcheck.launch("run_checks", 2, tmp_path_factory.mktemp("w2"),
-                            timeout=TIMEOUT, plan=_plan())
+    """Also CONFIG 5 on two ranks (test_torch_config5.py's inputs): the
+    sharded funm checks, the small problem, the driver's protocol writing
+    into ``config5_out`` with its evaluation costs, and the rank-agreement
+    helpers."""
+    root = tmp_path_factory.mktemp("w2")
+    write_transport(root / "data", "g150", PROBLEM["A"])
+    plan = _plan()
+    plan["funm"] = ("check_sharded_funm", FUNM)
+    plan["config5_problem"] = ("check_config5_problem", PROBLEM)
+    plan["config5_driver"] = ("run_config5", dict(
+        dataset="g150", out_dir=root / "config5_out", measure=True))
+    plan["agreement"] = ("check_rank_agreement", {})
+    # the ranks' graphs/io.py reads the data root when they import it
+    with mock.patch.dict(os.environ,
+                         KRYLOV_ROBUSTNESS_DATA=str(root / "data")):
+        outs = selfcheck.launch("run_checks", 2, root, timeout=TIMEOUT,
+                                plan=plan)
+    for out in outs:
+        out["config5_out"] = root / "config5_out"
+    return outs
 
 
 @pytest.fixture(scope="module")
@@ -325,3 +358,68 @@ def test_make_mode_placeholders_do_not_block_k1():
     np.testing.assert_array_equal(r_sh.edges, r_one.edges)
     np.testing.assert_allclose(r_sh.rob_variation, r_one.rob_variation,
                                rtol=1e-4)
+
+
+def test_sharded_funm_on_two_ranks_matches_coo_jax_and_scipy(world2):
+    """select_taylor_degree (t = ±1), expmv, entries_of_f_expmv and
+    degree_centrality on each rank's RowShardedMatrix: the CooMatrix's and
+    the JAX 8-device mesh's plans, scipy's entries; trace_fun_update_edges
+    against dense eigenvalues."""
+    plans, degree = jax_funm()
+    for out in (r["funm"] for r in world2):
+        check_funm(out, plans, degree)
+    a, b = (r["funm"] for r in world2)
+    assert a["plans"] == b["plans"]
+    for t in (1.0, -1.0):
+        np.testing.assert_array_equal(a["expmv"][t], b["expmv"][t])
+
+
+def test_config5_problem_on_two_ranks_matches_jax_and_coo(world2):
+    """The small CONFIG 5 problem: the search space, optimum and exact
+    Hessian of each rank against the JAX mesh and the CooMatrix, and the two
+    ranks' optima identical."""
+    jax_ref, coo_ref = jax_problem(), coo_problem()
+    for out in (r["config5_problem"] for r in world2):
+        check_problem(out, jax_ref, coo_ref)
+    a, b = (r["config5_problem"] for r in world2)
+    for key in ("Omega", "dfA", "x", "fval", "x_hessian", "fval_hessian"):
+        np.testing.assert_array_equal(a[key], b[key])
+
+
+def test_config5_driver_on_two_ranks(world2, tmp_path):
+    """``config5.main(["g150", "2", "--cpu", ...])`` on two ranks (search
+    space 30, 10 edges, maxiter 50): every Taylor plan, search space, evaluation, iterate, trace and
+    the optimum identical on both ranks; the optimum the world of one's
+    (fval rtol 1e-8); one CSV row, written by rank 0; the evaluation's
+    all-gather share measured."""
+    a, b = (r["config5_driver"] for r in world2)
+    assert (a["operator"], a["world"]) == ("RowShardedMatrix", 2)
+    assert a["plans"] == b["plans"] and len(a["plans"]) == 6
+    for key in ("Omega", "dfA", "x", "fval", "iterations", "traces",
+                "score"):
+        np.testing.assert_array_equal(a[key], b[key])
+    assert len(a["evals"]) == len(b["evals"])
+    for ea, eb in zip(a["evals"], b["evals"]):
+        for u, v in zip(ea[:3], eb[:3]):
+            np.testing.assert_array_equal(u, v)
+    one = config5.run(PROBLEM["A"], "g150", device="cpu", out_dir=tmp_path)
+    np.testing.assert_array_equal(a["Omega"], one["problem"].Omega)
+    np.testing.assert_allclose(a["dfA"], one["problem"].dfA, rtol=1e-10)
+    np.testing.assert_allclose(a["fval"], one["result"].fval, rtol=1e-8)
+    assert a["iterations"] == one["result"].iterations
+    assert [p[:3] for p in a["plans"][-2:]] == [
+        (p.t, p.m, p.s) for p in one["plans"]]
+    rows = list(csv.DictReader(open(next(world2[0]["config5_out"].glob(
+        "results_config5_sharded_sinh_rewire_*.csv")), newline="")))
+    assert len(rows) == 1 and rows[0]["n_devices"] == "2"
+    costs = a["costs"]
+    assert costs["gathers"] > 0 and 0 < costs["gather_share"] < 1
+    assert costs["busy_share"] is None  # no device on the CPU
+
+
+def test_rank_agreement_helpers_on_two_ranks(world2):
+    """A value that differs between ranks raises on every rank;
+    from_first_rank gives every rank rank 0's value."""
+    for out in (r["agreement"] for r in world2):
+        assert out["raised"] is not None and "the rank" in out["raised"]
+        assert out["first"] == 0
