@@ -664,18 +664,17 @@ def step_ms(r) -> list:
 
 
 def phase_road(dev, A) -> None:
-    from krylov_robustness_torch.ops import bsr_super
     from krylov_robustness_torch.optimize.greedy import greedy_krylov
 
     c, lognrm, sigma, tol = protocol(A, torch.float32)
     print(f"[road] n={A.shape[0]} edges={A.nnz // 2} lognrm={lognrm:.4f} "
           f"sigma={sigma} tol={tol:.4e}")
     for mode, k in (("break", 10), ("make", 5)):
-        before = bsr_super.launches_bf16
+        before = launches("K1")
         r = greedy_krylov(A, k, 250, c, order="min", tol=tol, mode=mode,
                           dtype=torch.float32, backend="auto", shift=sigma,
                           fused_steps=10, device=dev)
-        grew = bsr_super.launches_bf16 - before
+        grew = launches("K1") - before
         print(f"[road] {mode} k={k} f32 auto: {r.operator}, fused steps "
               f"{r.fused_accepted}, K1 launches +{grew}, per-step ms "
               f"{step_ms(r)}")
@@ -689,11 +688,11 @@ def phase_road(dev, A) -> None:
         print(f"[road] {mode} k={k} f32 coo: per-step ms {step_ms(rc)}")
         same_picks_or_floor(f"road {mode} K1 vs coo", r, rc, tol)
     c64, _, sigma64, tol64 = protocol(A, torch.float64)
-    before = bsr_super.launches_f32
+    before = launches("K2")
     r = greedy_krylov(A, 5, 250, c64, order="min", tol=tol64, mode="break",
                       dtype=torch.float64, backend="bsr", shift=sigma64,
                       device=dev)
-    grew = bsr_super.launches_f32 - before
+    grew = launches("K2") - before
     rc = greedy_krylov(A, 5, 250, c64, order="min", tol=tol64, mode="break",
                        dtype=torch.float64, backend="coo", shift=sigma64,
                        device=dev)
@@ -707,7 +706,6 @@ def phase_road(dev, A) -> None:
 
 
 def phase_hub(dev, A) -> None:
-    from krylov_robustness_torch.ops import bsr_super
     from krylov_robustness_torch.optimize.greedy import greedy_krylov
 
     c, lognrm, sigma, tol = protocol(A, torch.float32)
@@ -716,13 +714,13 @@ def phase_hub(dev, A) -> None:
           f"{int(deg.max())} lognrm={lognrm:.4f} sigma={sigma:.4f} "
           f"tol={tol:.4e}")
     check(lognrm > 20, "hub graph: lognrm <= 20, σ-shift would be off")
-    before = bsr_super.launches_bf16
+    before = launches("K1")
     t0 = time.perf_counter()
     r = greedy_krylov(A, 20, 250, c, order="min", tol=tol, mode="break",
                       dtype=torch.float32, backend="auto", shift=sigma,
                       fused_steps=10, device=dev)
     wall = time.perf_counter() - t0
-    grew = bsr_super.launches_bf16 - before
+    grew = launches("K1") - before
     fused_ms = float(np.median(r.per_step_time)) * 1e3
     print(f"[hub] break k=20 f32 fused_steps=10: {r.operator}, fused steps "
           f"{r.fused_accepted}/20, K1 launches +{grew}, median step "
@@ -785,17 +783,16 @@ def phase_budget(dev, A, root: Path) -> None:
     from krylov_robustness_torch.graphs.preprocess import (
         preprocess_unweighted,
     )
-    from krylov_robustness_torch.ops import banded_spmm
     from krylov_robustness_torch.optimize.greedy import greedy_krylov
 
     name = "road_standin"
     write_mat(root, "Transport", name, A)
     out = root / "out"
-    before = banded_spmm.launches_ell
+    before = launches("K3")
     wall = run_cli(["--out-dir", str(out), "budget", "--mode",
                     "break", "--datasets", name, "--search-spaces", "50",
                     "--budgets", "5", "10"])
-    grew = banded_spmm.launches_ell - before
+    grew = launches("K3") - before
     with open(next(out.glob("results_unweighted_break_budget_*.csv")),
               newline="") as f:
         rows = list(csv.DictReader(f))
@@ -1326,7 +1323,6 @@ def sharded_one_rank(dev, A, root: Path) -> dict:
     against coo. Returns the f32 picks and step times."""
     import torch.distributed as dist
 
-    from krylov_robustness_torch.ops import bsr_super
     from krylov_robustness_torch.optimize.greedy import greedy_krylov
     from krylov_robustness_torch.parallel import selfcheck
     from krylov_robustness_torch.parallel.mesh import make_mesh
@@ -1346,10 +1342,10 @@ def sharded_one_rank(dev, A, root: Path) -> dict:
         c, _, sigma, tol = protocol(A, torch.float32)
         kw = dict(order="min", mode="break", mesh=mesh, fused_steps=0,
                   device=dev)
-        before = bsr_super.launches_bf16
+        before = launches("K1")
         rs = greedy_krylov(A, 3, 250, c, tol=tol, dtype=torch.float32,
                            backend="sharded_bsr", shift=sigma, **kw)
-        grew = bsr_super.launches_bf16 - before
+        grew = launches("K1") - before
         rb = greedy_krylov(A, 3, 250, c, tol=tol, dtype=torch.float32,
                            backend="bsr", shift=sigma, **kw)
         print(f"[sharded] 1 rank road break k=3 Q=250 f32: {rs.operator}, "
@@ -1361,9 +1357,9 @@ def sharded_one_rank(dev, A, root: Path) -> dict:
         same_picks_or_floor("sharded 1-rank K1 vs bsr", rs, rb, tol)
         c64, _, sigma64, tol64 = protocol(A, torch.float64)
         kw64 = dict(kw, tol=tol64, dtype=torch.float64, shift=sigma64)
-        before = bsr_super.launches_f32
+        before = launches("K2")
         rs64 = greedy_krylov(A, 2, 250, c64, backend="sharded_bsr", **kw64)
-        grew = bsr_super.launches_f32 - before
+        grew = launches("K2") - before
         rb64 = greedy_krylov(A, 2, 250, c64, backend="bsr", **kw64)
         gap = abs(rs64.rob_variation - rb64.rob_variation) / abs(
             rb64.rob_variation)
@@ -1611,23 +1607,26 @@ def phase_surface(dev, graphs, root: Path) -> None:
 
 
 def launch_counts() -> dict:
-    from krylov_robustness_torch.ops import banded_spmm, bsr, bsr_super
+    """Launches of each kernel in this process so far (the program's
+    ``spmm.launches.K1`` … ``K4`` counters)."""
+    from krylov_robustness_torch.utils import tracing
 
-    return {"K1": bsr_super.launches_bf16, "K2": bsr_super.launches_f32,
-            "K3": banded_spmm.launches_ell, "K4": bsr.launches_bsr}
+    counts = tracing.counters()
+    return {k: counts.get(f"spmm.launches.{k}", 0)
+            for k in ("K1", "K2", "K3", "K4")}
+
+
+def launches(kernel: str) -> int:
+    return launch_counts()[kernel]
 
 
 def drive(path: str, fn, *args) -> dict:
-    """One main path, with every launch count set to 0 just before it and
-    read just after; returns the counts."""
-    from krylov_robustness_torch.ops import banded_spmm, bsr, bsr_super
-
-    bsr_super.launches_bf16 = bsr_super.launches_f32 = 0
-    banded_spmm.launches_ell = 0
-    bsr.launches_bsr = 0
+    """One main path, with the launches of each kernel counted over it;
+    returns the counts."""
+    before = launch_counts()
     t0 = time.perf_counter()
     fn(*args)
-    counts = launch_counts()
+    counts = {k: v - before[k] for k, v in launch_counts().items()}
     print(f"[{path}] launches {counts}, {time.perf_counter() - t0:.1f} s")
     return counts
 

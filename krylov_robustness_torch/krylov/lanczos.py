@@ -18,6 +18,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 LUCKY_TOL = 1e-8  # reference lanczos_krylov.m:74
 
 
@@ -94,25 +96,27 @@ def lanczos_step(A, state: LanczosState, lucky_tol: float = LUCKY_TOL):
     """One block step: SpMM + double MGS against the 2-block window + CholQR
     (``add_inf_pole``, ``lanczos_krylov.m:73-101``)."""
     vp, vc, alive = state
-    w = _spmm_nb(A, vc)
+    with tracing.span("krylov", vc):
+        w = _spmm_nb(A, vc)
 
-    def proj(w):
-        hp = torch.einsum("nbk,nbl->bkl", vp, w)
-        hc = torch.einsum("nbk,nbl->bkl", vc, w)
-        w = w - torch.einsum("nbk,bkl->nbl", vp, hp)
-        w = w - torch.einsum("nbk,bkl->nbl", vc, hc)
-        return w, hp, hc
+        def proj(w):
+            hp = torch.einsum("nbk,nbl->bkl", vp, w)
+            hc = torch.einsum("nbk,nbl->bkl", vc, w)
+            w = w - torch.einsum("nbk,bkl->nbl", vp, hp)
+            w = w - torch.einsum("nbk,bkl->nbl", vc, hc)
+            return w, hp, hc
 
-    w, hp1, hc1 = proj(w)
-    w, hp2, hc2 = proj(w)  # second MGS pass (lanczos_krylov.m:112-114)
-    h = torch.cat([hp1 + hp2, hc1 + hc2], dim=-2)  # (batch, 2bs, bs)
+        w, hp1, hc1 = proj(w)
+        w, hp2, hc2 = proj(w)  # second MGS pass (lanczos_krylov.m:112-114)
+        h = torch.cat([hp1 + hp2, hc1 + hc2], dim=-2)  # (batch, 2bs, bs)
 
-    Q, beta, ok = _chol_qr(w, lucky_tol)
-    alive_next = alive & ok
-    # dead batch members emit zero blocks from here on
-    h = torch.where(alive[:, None, None], h, torch.zeros_like(h))
-    beta = torch.where(alive_next[:, None, None], beta, torch.zeros_like(beta))
-    Q = torch.where(alive_next[None, :, None], Q, torch.zeros_like(Q))
+        Q, beta, ok = _chol_qr(w, lucky_tol)
+        alive_next = alive & ok
+        # dead batch members emit zero blocks from here on
+        h = torch.where(alive[:, None, None], h, torch.zeros_like(h))
+        beta = torch.where(alive_next[:, None, None], beta,
+                           torch.zeros_like(beta))
+        Q = torch.where(alive_next[None, :, None], Q, torch.zeros_like(Q))
     return LanczosState(v_prev=vc, v_cur=Q, alive=alive_next), h, beta
 
 
@@ -136,6 +140,7 @@ def lanczos_continue(A, state: LanczosState, num_steps: int,
         betas.append(beta)
         died.append(alive_before & ~state.alive)
     batch = state.alive.shape[0]
+    tracing.count("krylov.steps_run", batch * num_steps)
     if num_steps:
         died = torch.stack(died)
         lucky_step = torch.where(

@@ -19,6 +19,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import tracing
+
 
 def eigvalsh_banded(G: torch.Tensor, w: int = 3,
                     iters: int | None = None) -> torch.Tensor:
@@ -30,12 +32,18 @@ def eigvalsh_banded(G: torch.Tensor, w: int = 3,
     to M−1.
     """
     batch, M, _ = G.shape
-    dtype, dev = G.dtype, G.device
     if iters is None:
-        iters = 34 if dtype == torch.float32 else 62
+        iters = 34 if G.dtype == torch.float32 else 62
     if M == 0:
         return G.new_zeros((batch, 0))
-    w = min(w, M - 1)
+    with tracing.span("spectra.sturm", batch, M):
+        return _bisect(G, min(w, M - 1), iters)
+
+
+def _bisect(G: torch.Tensor, w: int, iters: int) -> torch.Tensor:
+    """:func:`eigvalsh_banded` for 1 ≤ M, w ≤ M − 1."""
+    batch, M, _ = G.shape
+    dtype, dev = G.dtype, G.device
 
     diag = torch.diagonal(G, dim1=-2, dim2=-1)  # (batch, M)
     # banded view: band[b, d, i] = G[i+d, i], d = 0..w (zero-padded tail)

@@ -35,13 +35,11 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..utils import tracing
 from ..utils.device import float_dtype, resolve_device
 from . import cuda_build, row_gather
 from .sparse import CooMatrix
 
-# launch count of K3 (both dtypes, both paths); the wrapper adds one where it
-# launches the kernel and nowhere else
-launches_ell = 0
 # K3 runs the row gather for x of at least this many columns, and one thread
 # per output over the ELL below it (where the gather's lanes would stride
 # over a row's few entries)
@@ -122,7 +120,6 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, row_ptr: torch.Tensor,
     ``val_off`` of nnz, each entry's slot in the flattened ``vals``; see
     :mod:`.row_gather`). x of at least :data:`GATHER_MIN_B` columns runs the
     row gather over the index, narrower x the ELL kernel over the tables."""
-    global launches_ell
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the banded-ELL kernel runs on CUDA tensors, got "
@@ -162,7 +159,7 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, row_ptr: torch.Tensor,
             code = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
                       y.data_ptr(), n, K, b, stream)
     cuda_build.raise_on(code, fn.__name__)
-    launches_ell += 1
+    tracing.count("spmm.launches.K3")  # both dtypes, both paths
     return y
 
 
@@ -292,15 +289,17 @@ class BandedEllOperator:
         return y[:, 0] if squeeze else y
 
     def matmul(self, x: torch.Tensor) -> torch.Tensor:
-        if x.device.type == "cpu":
-            return self.matmul_plain(x)
-        if x.device.type != "cuda":
-            raise ValueError(f"unsupported device {x.device}")
-        squeeze = x.ndim == 1
-        y = ell_spmm(self.cols, self.vals, self._row_ptr, self._cols,
-                     self._val_off,
-                     self._prepare(x[:, None] if squeeze else x)).to(x.dtype)
-        return y[:, 0] if squeeze else y
+        with tracing.spmm_span(self, x):
+            if x.device.type == "cpu":
+                return self.matmul_plain(x)
+            if x.device.type != "cuda":
+                raise ValueError(f"unsupported device {x.device}")
+            squeeze = x.ndim == 1
+            y = ell_spmm(self.cols, self.vals, self._row_ptr, self._cols,
+                         self._val_off,
+                         self._prepare(x[:, None] if squeeze else x)
+                         ).to(x.dtype)
+            return y[:, 0] if squeeze else y
 
     def __matmul__(self, x):
         return self.matmul(x)

@@ -33,6 +33,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..utils import tracing
 from ..utils.device import float_dtype, resolve_device
 from . import cuda_build, row_gather
 from .sparse import CooMatrix
@@ -40,10 +41,6 @@ from .sparse import CooMatrix
 BLK = 128
 # make_bsr_operator's storage budget, the JAX package's value
 MAX_STORAGE_BYTES = 768 * 1024 * 1024
-
-# launch count of K4 (both dtypes); the wrapper adds one where it launches the
-# kernel and nowhere else
-launches_bsr = 0
 
 _LIB = None
 
@@ -151,7 +148,6 @@ def bsr_spmm(row_ptr: torch.Tensor, cols: torch.Tensor,
     values gathered out of the blocks ``ablocks`` (in x's dtype) through the
     int32 row index (``row_ptr`` of n + 1, ``cols`` and ``val_off`` of nnz;
     see :mod:`.row_gather`)."""
-    global launches_bsr
     if x.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"K4 takes float32 or float64, got {x.dtype}")
     n, b = x.shape
@@ -169,7 +165,7 @@ def bsr_spmm(row_ptr: torch.Tensor, cols: torch.Tensor,
                   ablocks.data_ptr(), x.data_ptr(), y.data_ptr(), n, b,
                   stream)
     cuda_build.raise_on(code, fn.__name__)
-    launches_bsr += 1
+    tracing.count("spmm.launches.K4")  # both dtypes
     return y
 
 
@@ -310,14 +306,16 @@ class BsrOperator:
         return y[:, 0] if squeeze else y
 
     def matmul(self, x: torch.Tensor) -> torch.Tensor:
-        if x.device.type == "cpu":
-            return self.matmul_plain(x)
-        if x.device.type != "cuda":
-            raise ValueError(f"unsupported device {x.device}")
-        squeeze = x.ndim == 1
-        y = bsr_spmm(self.row_ptr, self.cols, self.val_off, self.ablocks,
-                     self._prepare(x[:, None] if squeeze else x)).to(x.dtype)
-        return y[:, 0] if squeeze else y
+        with tracing.spmm_span(self, x):
+            if x.device.type == "cpu":
+                return self.matmul_plain(x)
+            if x.device.type != "cuda":
+                raise ValueError(f"unsupported device {x.device}")
+            squeeze = x.ndim == 1
+            y = bsr_spmm(self.row_ptr, self.cols, self.val_off, self.ablocks,
+                         self._prepare(x[:, None] if squeeze else x)
+                         ).to(x.dtype)
+            return y[:, 0] if squeeze else y
 
     def __matmul__(self, x):
         return self.matmul(x)

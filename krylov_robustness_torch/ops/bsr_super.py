@@ -37,6 +37,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..utils import tracing
 from ..utils.device import float_dtype, resolve_device
 from . import cuda_build, row_gather
 
@@ -46,11 +47,6 @@ SLAB = 2  # 128-col blocks per x slab (tile width 256)
 TILE_R = SUP * BLK
 TILE_C = SLAB * BLK
 MODES = ("f32", "bf16x2", "bf16x3")
-
-# launch counts of K1 and K2 (K2 counts both its f32 and f64 instantiation);
-# each wrapper adds one where it launches its kernel and nowhere else
-launches_bf16 = 0
-launches_f32 = 0
 
 _LIB = None
 
@@ -236,7 +232,6 @@ def tile_spmm_bf16(row_ptr, cols, val_off, atiles, x, terms: int):
     :mod:`.row_gather`), x split into ``terms`` bf16 parts inside the kernel.
     m = n_x for the square operator; a shard's block of a row-sharded
     operator has its own rows (m) and reads local or gathered x (n_x)."""
-    global launches_bf16
     m = row_gather.check_launch("K1", row_ptr, cols, val_off, atiles, x,
                                 torch.bfloat16, torch.float32)
     if terms not in (2, 3):
@@ -251,7 +246,7 @@ def tile_spmm_bf16(row_ptr, cols, val_off, atiles, x, terms: int):
             atiles.data_ptr(), x.data_ptr(), y.data_ptr(), m, b, terms,
             stream)
     cuda_build.raise_on(code, "krt_bsr_super_bf16")
-    launches_bf16 += 1
+    tracing.count("spmm.launches.K1")
     return y
 
 
@@ -261,7 +256,6 @@ def tile_spmm_full(row_ptr, cols, val_off, atiles, x):
     (``row_ptr`` of m + 1, ``cols`` and ``val_off`` of nnz, every column
     below n_x; see :mod:`.row_gather`), one DFMA an entry into an f64 sum
     (in f32 rounded once at the store). m and n_x as for K1."""
-    global launches_f32
     if x.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"K2 takes float32 or float64, got {x.dtype}")
     m = row_gather.check_launch("K2", row_ptr, cols, val_off, atiles, x,
@@ -277,7 +271,7 @@ def tile_spmm_full(row_ptr, cols, val_off, atiles, x):
                   atiles.data_ptr(), x.data_ptr(), y.data_ptr(), m, b,
                   stream)
     cuda_build.raise_on(code, fn.__name__)
-    launches_f32 += 1
+    tracing.count("spmm.launches.K2")  # f32 and f64
     return y
 
 
@@ -456,20 +450,21 @@ class SuperBsrOperator:
         return y[:, 0] if squeeze else y
 
     def matmul(self, x: torch.Tensor) -> torch.Tensor:
-        if x.device.type == "cpu":
-            return self.matmul_plain(x)
-        if x.device.type != "cuda":
-            raise ValueError(f"unsupported device {x.device}")
-        squeeze = x.ndim == 1
-        xc = self._prepare(x[:, None] if squeeze else x)
-        if self._terms():
-            y = tile_spmm_bf16(self._row_ptr, self._cols, self._val_off,
-                               self.atiles, xc, self._terms())
-        else:
-            y = tile_spmm_full(self._row_ptr, self._cols, self._val_off,
-                               self.atiles, xc)
-        y = y.to(x.dtype)
-        return y[:, 0] if squeeze else y
+        with tracing.spmm_span(self, x):
+            if x.device.type == "cpu":
+                return self.matmul_plain(x)
+            if x.device.type != "cuda":
+                raise ValueError(f"unsupported device {x.device}")
+            squeeze = x.ndim == 1
+            xc = self._prepare(x[:, None] if squeeze else x)
+            if self._terms():
+                y = tile_spmm_bf16(self._row_ptr, self._cols, self._val_off,
+                                   self.atiles, xc, self._terms())
+            else:
+                y = tile_spmm_full(self._row_ptr, self._cols, self._val_off,
+                                   self.atiles, xc)
+            y = y.to(x.dtype)
+            return y[:, 0] if squeeze else y
 
     def __matmul__(self, x):
         return self.matmul(x)

@@ -17,6 +17,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..utils import tracing
 from ..utils.device import float_dtype, resolve_device
 
 
@@ -105,10 +106,11 @@ class CooMatrix:
                               accumulate=True)
 
     def matmul(self, x: torch.Tensor) -> torch.Tensor:
-        return coo_spmm(self, x)
+        with tracing.spmm_span(self, x):
+            return coo_spmm(self, x)
 
     def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
-        return coo_spmm(self, x)
+        return self.matmul(x)
 
     def transpose(self) -> "CooMatrix":
         # as in the JAX package: the matrices are symmetric in almost all
@@ -187,10 +189,11 @@ class EllMatrix:
         return self.nnz / float(self.cols.shape[0] * self.cols.shape[1])
 
     def matmul(self, x: torch.Tensor) -> torch.Tensor:
-        return ell_spmm(self, x)
+        with tracing.spmm_span(self, x):
+            return ell_spmm(self, x)
 
     def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
-        return ell_spmm(self, x)
+        return self.matmul(x)
 
 
 def ell_spmm(A: EllMatrix, x: torch.Tensor) -> torch.Tensor:

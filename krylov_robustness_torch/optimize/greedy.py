@@ -28,6 +28,7 @@ from ..graphs.top_edges import find_top_edges, find_top_missing_edges
 from ..ops.sparse import CooMatrix
 from ..updates import trace_update
 from ..updates.trace_update import DEFAULT_SCHEDULE, trace_fun_update_edges
+from ..utils import tracing
 from ..utils.device import float_dtype, require_full_f32_matmul, \
     resolve_device
 from ..utils.guards import check_finite
@@ -513,36 +514,41 @@ def greedy_krylov(
     ``load(dataset)``, ``save(dataset, step, edges, rob, extra=...)`` and
     ``clear()``.
     """
-    dev = resolve_device(device)
-    dtype = float_dtype(dtype)
-    if dev.type == "cuda" and dtype == torch.float32:
-        require_full_f32_matmul()
-    if fused_steps is None:
-        fused_steps = 10 if dtype == torch.float32 else 0
-    if backend not in ("auto", "coo", "bsr", "banded", "sharded",
-                       "sharded_bsr"):
-        raise ValueError(f"unknown backend {backend!r}")
-    if mesh is not None and mesh.device.type != dev.type:
-        raise ValueError(f"the mesh is on {mesh.device}, device is {dev}")
-    A = sp.csr_matrix(A, copy=True)
-    if Q is None or Q == 0:
-        Q = int(A.sum(axis=0).max())
-    if mode == "break" and A.nnz < 2 * k:
-        raise ValueError("edges to be removed exceed edges in the network")
-    if mode == "make":
-        top = find_top_missing_edges(A, centrality, Q + k, order)
-    else:
-        top = find_top_edges(A, centrality, Q + k, order)
-    sign = -1.0 if mode == "break" else +1.0
+    t_build = time.perf_counter()
+    with tracing.span("sweep.build"):
+        dev = resolve_device(device)
+        dtype = float_dtype(dtype)
+        if dev.type == "cuda" and dtype == torch.float32:
+            require_full_f32_matmul()
+        if fused_steps is None:
+            fused_steps = 10 if dtype == torch.float32 else 0
+        if backend not in ("auto", "coo", "bsr", "banded", "sharded",
+                           "sharded_bsr"):
+            raise ValueError(f"unknown backend {backend!r}")
+        if mesh is not None and mesh.device.type != dev.type:
+            raise ValueError(f"the mesh is on {mesh.device}, device is {dev}")
+        A = sp.csr_matrix(A, copy=True)
+        if Q is None or Q == 0:
+            Q = int(A.sum(axis=0).max())
+        if mode == "break" and A.nnz < 2 * k:
+            raise ValueError("edges to be removed exceed edges in the network")
+        if mode == "make":
+            top = find_top_missing_edges(A, centrality, Q + k, order)
+        else:
+            top = find_top_edges(A, centrality, Q + k, order)
+        sign = -1.0 if mode == "break" else +1.0
 
-    extra = top if mode == "make" else None
-    if backend == "sharded":
-        F = _ShardedFrozenMatrix(A, extra, dtype=dtype, mesh=mesh, device=dev)
-    elif backend == "sharded_bsr":
-        F = _ShardedBsrFrozenMatrix(A, extra, dtype=dtype, mesh=mesh,
-                                    device=dev)
-    else:
-        F = _single_device_operator(A, top, Q, mode, backend, dtype, dev)
+        extra = top if mode == "make" else None
+        if backend == "sharded":
+            F = _ShardedFrozenMatrix(A, extra, dtype=dtype, mesh=mesh,
+                                     device=dev)
+        elif backend == "sharded_bsr":
+            F = _ShardedBsrFrozenMatrix(A, extra, dtype=dtype, mesh=mesh,
+                                        device=dev)
+        else:
+            F = _single_device_operator(A, top, Q, mode, backend, dtype, dev)
+    tracing.count("sweep.build_s", time.perf_counter() - t_build)
+    sweep = tracing.count("sweep.builds")  # the sweep's id in the process
 
     # Below the dense cutoff the per-step loop scores exactly; above the
     # cell ceiling the fused block (one scoring call per step, unchunked)
@@ -556,11 +562,11 @@ def greedy_krylov(
             and hasattr(F, "fused_state")):
         return _greedy_loop_fused(F, top, Q, k, mode, sign, fun, tol,
                                   rescale, schedule, shift, checkpoint,
-                                  dataset, R=fused_steps)
+                                  dataset, R=fused_steps, sweep=sweep)
     return _greedy_loop(F, top, Q, k, mode, sign, fun, tol, rescale,
                         schedule, shift, checkpoint, dataset,
                         rescore_every=rescore_every,
-                        rescore_frac=rescore_frac)
+                        rescore_frac=rescore_frac, sweep=sweep)
 
 
 def _single_device_operator(A, top, Q: int, mode: str, backend: str, dtype,
@@ -635,7 +641,7 @@ def _result(F, chosen, rob, deltas, iters, times,
 
 
 def _greedy_loop_fused(F, top, Q, k, mode, sign, fun, tol, rescale, schedule,
-                       shift, checkpoint, dataset, R=8):
+                       shift, checkpoint, dataset, R=8, *, sweep: int):
     """Fused-block budget loop: R greedy steps per block (:mod:`.fused`, the
     reference hot loop ``krylov_miobi.m:112-137``). A step whose window has
     convergence stragglers beyond the fused budget is replayed through the
@@ -682,44 +688,45 @@ def _greedy_loop_fused(F, top, Q, k, mode, sign, fun, tol, rescale, schedule,
         acc = 0
         want = min(R, k - step)
         if not devolved:
-            t0 = time.perf_counter()
-            nC = min(len(top), nC_pad)
-            table = top[:nC]
-            if nC_pad > nC:
-                table = np.concatenate(
-                    [table, np.repeat(table[:1], nC_pad - nC, axis=0)])
-            alive = np.zeros(nC_pad, bool)
-            alive[:nC] = True
-            mapped = np.asarray(F.map_edges(table))
-            slots = F.fused_slots(mapped)
-            op, vals = F.fused_state()
-            vals_f, _, outs = fused_greedy_block(
-                op, vals, mapped, slots, alive, commit, tol, shift, sign,
-                rescale, rebuild=F.fused_rebuild, Q=Q, R=R, mode=mode,
-                fun_name=fun_name)
-            hs, dls, its, oks, nfs = (_np(t) for t in outs)
-            while acc < want and oks[acc]:
-                acc += 1
-            if np.any(nfs[:max(acc, 1)]):
-                warnings.warn(
-                    f"fused greedy {dataset}: non-finite candidate scores "
-                    f"in steps {step}..{step + acc} (excluded from the "
-                    "argmin)", RuntimeWarning)
-            t_per = (time.perf_counter() - t0) / max(acc, 1)
-            for r in range(acc):
-                h = int(hs[r])
-                record(table[h, 0], table[h, 1], dls[r], its[r], t_per)
-                shrink(table[h, 0], table[h, 1])
-            if acc == R:
-                F.set_fused_vals(vals_f)
-            elif acc > 0:
-                # the block worked on a copy: commit the accepted winners
-                # into the pre-block storage, in place
-                idxs = slots[hs[:acc]].reshape(-1)
-                vals[torch.as_tensor(idxs, device=vals.device)] = commit
-                F.set_fused_vals(vals)
-            step += acc
-            fused_accepted += acc
+            with tracing.span("step", sweep, step):  # the whole block
+                t0 = time.perf_counter()
+                nC = min(len(top), nC_pad)
+                table = top[:nC]
+                if nC_pad > nC:
+                    table = np.concatenate(
+                        [table, np.repeat(table[:1], nC_pad - nC, axis=0)])
+                alive = np.zeros(nC_pad, bool)
+                alive[:nC] = True
+                mapped = np.asarray(F.map_edges(table))
+                slots = F.fused_slots(mapped)
+                op, vals = F.fused_state()
+                vals_f, _, outs = fused_greedy_block(
+                    op, vals, mapped, slots, alive, commit, tol, shift, sign,
+                    rescale, rebuild=F.fused_rebuild, Q=Q, R=R, mode=mode,
+                    fun_name=fun_name)
+                hs, dls, its, oks, nfs = (_np(t) for t in outs)
+                while acc < want and oks[acc]:
+                    acc += 1
+                if np.any(nfs[:max(acc, 1)]):
+                    warnings.warn(
+                        f"fused greedy {dataset}: non-finite candidate scores "
+                        f"in steps {step}..{step + acc} (excluded from the "
+                        "argmin)", RuntimeWarning)
+                t_per = (time.perf_counter() - t0) / max(acc, 1)
+                for r in range(acc):
+                    h = int(hs[r])
+                    record(table[h, 0], table[h, 1], dls[r], its[r], t_per)
+                    shrink(table[h, 0], table[h, 1])
+                if acc == R:
+                    F.set_fused_vals(vals_f)
+                elif acc > 0:
+                    # the block worked on a copy: commit the accepted winners
+                    # into the pre-block storage, in place
+                    idxs = slots[hs[:acc]].reshape(-1)
+                    vals[torch.as_tensor(idxs, device=vals.device)] = commit
+                    F.set_fused_vals(vals)
+                step += acc
+                fused_accepted += acc
             if acc:
                 save()
             consec_bad = consec_bad + 1 if acc == 0 else 0
@@ -733,23 +740,24 @@ def _greedy_loop_fused(F, top, Q, k, mode, sign, fun, tol, rescale, schedule,
         if devolved or (acc < want and not oks[acc]):
             # straggler (or no finite score) in this step's window: score it
             # through the accurate per-step lane
-            t1 = time.perf_counter()
-            E = top[:Q]
-            res = trace_fun_update_edges(
-                F.operator, F.map_edges(E), sign=sign, fun=fun, tol=tol,
-                rescale=rescale, schedule=schedule, shift=shift)
-            scores = _np(res.delta).copy()
-            worst = np.inf if mode == "break" else -np.inf
-            if not _guard_scores(scores, step, dataset):
-                scores[~np.isfinite(scores)] = worst
-            h = int(np.argmin(scores) if mode == "break"
-                    else np.argmax(scores))
-            i, j = int(E[h, 0]), int(E[h, 1])
-            F.set_edge(i, j, commit)
-            record(i, j, scores[h], _np(res.iters)[h],
-                   time.perf_counter() - t1)
-            shrink(i, j)
-            step += 1
+            with tracing.span("step", sweep, step):
+                t1 = time.perf_counter()
+                E = top[:Q]
+                res = trace_fun_update_edges(
+                    F.operator, F.map_edges(E), sign=sign, fun=fun, tol=tol,
+                    rescale=rescale, schedule=schedule, shift=shift)
+                scores = _np(res.delta).copy()
+                worst = np.inf if mode == "break" else -np.inf
+                if not _guard_scores(scores, step, dataset):
+                    scores[~np.isfinite(scores)] = worst
+                h = int(np.argmin(scores) if mode == "break"
+                        else np.argmax(scores))
+                i, j = int(E[h, 0]), int(E[h, 1])
+                F.set_edge(i, j, commit)
+                record(i, j, scores[h], _np(res.iters)[h],
+                       time.perf_counter() - t1)
+                shrink(i, j)
+                step += 1
             save()
     if checkpoint is not None:
         checkpoint.clear()
@@ -758,7 +766,7 @@ def _greedy_loop_fused(F, top, Q, k, mode, sign, fun, tol, rescale, schedule,
 
 def _greedy_loop(F, top, Q, k, mode, sign, fun, tol, rescale, schedule,
                  shift, checkpoint, dataset, rescore_every=1,
-                 rescore_frac=0.2):
+                 rescore_frac=0.2, *, sweep: int):
     """The per-step budget loop: score the surviving Q candidates in one
     batched call, commit the best edge, shrink the search space
     (``greedy_krylov.m:64-93``).
@@ -778,76 +786,79 @@ def _greedy_loop(F, top, Q, k, mode, sign, fun, tol, rescale, schedule,
     have_scores = False
     last_edit = None
     for step in range(start_step, k):
-        t_step = time.perf_counter()
-        E = top[:Q]
-        nE = len(E)
-        do_full = (rescore_every <= 1 or not have_scores
-                   or (step - start_step) % rescore_every == 0)
-        if not do_full:
-            stale = scores_all[:nE]
-            # fixed-size fresh subset, padded to a multiple of 64
-            T_fix = min(nE, max(64, -(-int(nE * rescore_frac) // 64) * 64))
-            rank_key = np.where(np.isnan(stale), worst,
-                                stale if mode == "break" else -stale)
-            order = np.argsort(rank_key, kind="stable")
-            sel_mask = np.zeros(nE, bool)
-            sel_mask[order[:T_fix]] = True
-            sel_mask |= np.isnan(stale)
-            if last_edit is not None:
-                li, lj = last_edit
-                sel_mask |= ((E[:, 0] == li) | (E[:, 1] == li)
-                             | (E[:, 0] == lj) | (E[:, 1] == lj))
-            sel = np.nonzero(sel_mask)[0]
-            want = min(nE, -(-len(sel) // 64) * 64)
-            if len(sel) < want:  # fill with next-best stale candidates
-                extra = order[~sel_mask[order]][: want - len(sel)]
-                sel = np.sort(np.concatenate([sel, extra]))
-            res = trace_fun_update_edges(
-                F.operator, F.map_edges(E[sel]), sign=sign, fun=fun,
-                tol=tol, rescale=rescale, schedule=schedule, shift=shift)
-            scores = stale.copy()
-            scores[sel] = _np(res.delta)
-            iters_vec = iters_all[:nE].copy()
-            iters_vec[sel] = _np(res.iters)
-            guarded = np.zeros(nE, bool)
-            if not _guard_scores(scores, step, dataset):
-                guarded = ~np.isfinite(scores)
-                scores[guarded] = worst
-            h = int(np.argmin(scores) if mode == "break"
-                    else np.argmax(scores))
-            if not sel_mask[h]:
-                do_full = True  # stale would-be winner: rescore everything
-        if do_full:
-            res = trace_fun_update_edges(
-                F.operator, F.map_edges(E), sign=sign, fun=fun, tol=tol,
-                rescale=rescale, schedule=schedule, shift=shift)
-            scores = _np(res.delta).copy()
-            iters_vec = _np(res.iters).copy()
-            guarded = np.zeros(nE, bool)
-            if not _guard_scores(scores, step, dataset):
-                guarded = ~np.isfinite(scores)
-                scores[guarded] = worst
-            h = int(np.argmin(scores) if mode == "break"
-                    else np.argmax(scores))
-        scores_all[:nE] = scores
-        # guarded entries persist as NaN: they re-enter the refresh set next
-        # step instead of staying excluded until the next full rescore
-        scores_all[:nE][guarded] = np.nan
-        iters_all[:nE] = iters_vec
-        have_scores = True
-        i, j = int(E[h, 0]), int(E[h, 1])
-        chosen.append((i, j))
-        deltas.append(float(scores[h]))
-        iters.append(int(iters_vec[h]))
-        rob += float(scores[h])
-        F.set_edge(i, j, 0.0 if mode == "break" else 1.0 / rescale)
-        last_edit = (i, j)
-        # drop the chosen edge from the search space (greedy_krylov.m:68-71)
-        keep = ~((top[:, 0] == i) & (top[:, 1] == j))
-        top = top[keep]
-        scores_all = scores_all[keep]
-        iters_all = iters_all[keep]
-        times.append(time.perf_counter() - t_step)
+        with tracing.span("step", sweep, step):
+            t_step = time.perf_counter()
+            E = top[:Q]
+            nE = len(E)
+            do_full = (rescore_every <= 1 or not have_scores
+                       or (step - start_step) % rescore_every == 0)
+            if not do_full:
+                stale = scores_all[:nE]
+                # fixed-size fresh subset, padded to a multiple of 64
+                T_fix = min(nE, max(64, -(-int(nE * rescore_frac) // 64) * 64))
+                rank_key = np.where(np.isnan(stale), worst,
+                                    stale if mode == "break" else -stale)
+                order = np.argsort(rank_key, kind="stable")
+                sel_mask = np.zeros(nE, bool)
+                sel_mask[order[:T_fix]] = True
+                sel_mask |= np.isnan(stale)
+                if last_edit is not None:
+                    li, lj = last_edit
+                    sel_mask |= ((E[:, 0] == li) | (E[:, 1] == li)
+                                 | (E[:, 0] == lj) | (E[:, 1] == lj))
+                sel = np.nonzero(sel_mask)[0]
+                want = min(nE, -(-len(sel) // 64) * 64)
+                if len(sel) < want:  # fill with next-best stale candidates
+                    extra = order[~sel_mask[order]][: want - len(sel)]
+                    sel = np.sort(np.concatenate([sel, extra]))
+                res = trace_fun_update_edges(
+                    F.operator, F.map_edges(E[sel]), sign=sign, fun=fun,
+                    tol=tol, rescale=rescale, schedule=schedule, shift=shift)
+                scores = stale.copy()
+                scores[sel] = _np(res.delta)
+                iters_vec = iters_all[:nE].copy()
+                iters_vec[sel] = _np(res.iters)
+                guarded = np.zeros(nE, bool)
+                if not _guard_scores(scores, step, dataset):
+                    guarded = ~np.isfinite(scores)
+                    scores[guarded] = worst
+                h = int(np.argmin(scores) if mode == "break"
+                        else np.argmax(scores))
+                if not sel_mask[h]:
+                    do_full = True  # stale would-be winner: rescore everything
+            if do_full:
+                res = trace_fun_update_edges(
+                    F.operator, F.map_edges(E), sign=sign, fun=fun, tol=tol,
+                    rescale=rescale, schedule=schedule, shift=shift)
+                scores = _np(res.delta).copy()
+                iters_vec = _np(res.iters).copy()
+                guarded = np.zeros(nE, bool)
+                if not _guard_scores(scores, step, dataset):
+                    guarded = ~np.isfinite(scores)
+                    scores[guarded] = worst
+                h = int(np.argmin(scores) if mode == "break"
+                        else np.argmax(scores))
+            scores_all[:nE] = scores
+            # guarded entries persist as NaN: they re-enter the refresh set
+            # next step instead of staying excluded until the next full
+            # rescore
+            scores_all[:nE][guarded] = np.nan
+            iters_all[:nE] = iters_vec
+            have_scores = True
+            i, j = int(E[h, 0]), int(E[h, 1])
+            chosen.append((i, j))
+            deltas.append(float(scores[h]))
+            iters.append(int(iters_vec[h]))
+            rob += float(scores[h])
+            F.set_edge(i, j, 0.0 if mode == "break" else 1.0 / rescale)
+            last_edit = (i, j)
+            # drop the chosen edge from the search space
+            # (greedy_krylov.m:68-71)
+            keep = ~((top[:, 0] == i) & (top[:, 1] == j))
+            top = top[keep]
+            scores_all = scores_all[keep]
+            iters_all = iters_all[keep]
+            times.append(time.perf_counter() - t_step)
         if checkpoint is not None:
             checkpoint.save(dataset, step + 1, chosen, rob,
                             extra={"deltas": deltas, "iters": iters,

@@ -31,7 +31,7 @@ import scipy.sparse as sp
 import torch
 import torch.distributed as dist
 
-from ..ops import bsr_super
+from ..utils import tracing
 from .mesh import (
     default_mesh,
     from_first_rank,
@@ -389,15 +389,21 @@ def check_rank_agreement(rank) -> dict:
     return dict(raised=raised, first=from_first_rank(mesh, lambda: rank))
 
 
+def _launched(before: dict, kernels) -> dict:
+    """Launches of each of ``kernels`` since the counters read ``before``."""
+    now = tracing.counters()
+    return {k: now.get(f"spmm.launches.{k}", 0)
+            - before.get(f"spmm.launches.{k}", 0) for k in kernels}
+
+
 def _evaluation_costs(M, prob, x, nrm, dev) -> dict:
     """One ``fun_and_grad`` at ``x`` (after a warm-up call) with every
     all-gather timed (synchronized before and after, so that it holds no
     product's kernels), then one under ``torch.profiler``: milliseconds,
-    the all-gathers' share, and the device's busy share (its own events'
-    time over the wall; None on the CPU)."""
+    the all-gathers' share, and the device's busy share (the union of its
+    events' intervals over the wall; None on the CPU)."""
     from unittest import mock
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ..optimize import continuous
@@ -429,14 +435,12 @@ def _evaluation_costs(M, prob, x, nrm, dev) -> dict:
                                      if dev.type == "cuda" else [])
     with profile(activities=acts) as prof:
         wall_p = call()
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA)
     return dict(ms=wall * 1e3, gathers=len(gathers),
                 gather_ms=sum(gathers) * 1e3,
                 gather_share=sum(gathers) / wall,
                 profiled_ms=wall_p * 1e3,
-                busy_share=(busy_us / 1e6 / wall_p if dev.type == "cuda"
-                            else None))
+                busy_share=(tracing.device_busy_us(prof) / 1e6 / wall_p
+                            if dev.type == "cuda" else None))
 
 
 def run_config5(rank, dataset, out_dir, measure=False,
@@ -566,9 +570,9 @@ def card_checks(rank, A, b, seed, gates, greedy_args,
     n = A.shape[0]
     x = np.random.default_rng(seed).standard_normal((n, b))
     out = {"products": {}, "errors": {}, "hbm_gbps": HBM_GBPS}
-    for label, mode, dtype, counter, unit in (
-            ("bf16x2", "bf16x2", torch.float32, "launches_bf16", "ffma"),
-            ("f64", "f32", torch.float64, "launches_f32", "dfma")):
+    for label, mode, dtype, kernel, unit in (
+            ("bf16x2", "bf16x2", torch.float32, "K1", "ffma"),
+            ("f64", "f32", torch.float64, "K2", "dfma")):
         S = BsrRowShardedMatrix.from_scipy(A, mesh, dtype=dtype, mode=mode)
         require(S.n_diag > 0, "the overlap split is off")
         xp = np.zeros((S.n, b))
@@ -581,10 +585,10 @@ def card_checks(rank, A, b, seed, gates, greedy_args,
         ref = ref[rows]
         scale = float(np.abs(ref).max())
         x_local = torch.as_tensor(xp[rows], device=dev).to(dtype)
-        before = getattr(bsr_super, counter)
+        before = tracing.counters()
         y = S.spmm_sharded(x_local)
         _sync(dev)
-        launched = getattr(bsr_super, counter) - before
+        launched = _launched(before, (kernel,))[kernel]
         require(launched == (2 if dev.type == "cuda" else 0),
                 f"rank {rank} {label}: the sharded product launched the "
                 f"kernel {launched} times, not once per pass")
@@ -636,7 +640,7 @@ def card_checks(rank, A, b, seed, gates, greedy_args,
         out["errors"][layout] = err
         require(err <= gates["f64"], f"rank {rank} {layout}: error {err:.3e}")
     k, Q, cent, tol, shift = greedy_args
-    counts = bsr_super.launches_bf16, bsr_super.launches_f32
+    before = tracing.counters()
     t0 = time.perf_counter()
     r = greedy_krylov(A, k, Q, cent, order="min", tol=tol, mode="break",
                       dtype=torch.float32, backend="sharded_bsr",
@@ -645,6 +649,5 @@ def card_checks(rank, A, b, seed, gates, greedy_args,
                          per_step_delta=r.per_step_delta,
                          per_step_time=r.per_step_time, operator=r.operator,
                          wall=time.perf_counter() - t0,
-                         launches=dict(K1=bsr_super.launches_bf16 - counts[0],
-                                       K2=bsr_super.launches_f32 - counts[1]))
+                         launches=_launched(before, ("K1", "K2")))
     return out

@@ -44,6 +44,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops import bsr_super, row_gather
+from ..utils import tracing
 from ..utils.device import float_dtype
 from .mesh import Mesh, row_sharded
 
@@ -146,20 +147,21 @@ class _RowSharded:
         """Replicated (n, b) or (n,) in, replicated out: this rank's block
         from the x it already holds (no gather of x), then y all-gathered
         over the rows axis (and the ``cands`` axis)."""
-        squeeze = x.ndim == 1
-        if squeeze:
-            x = x[:, None]
-        n_in, b = x.shape
-        if n_in != self.n:
-            x = torch.nn.functional.pad(x, (0, 0, 0, self.n - n_in))
-        xc = x[:, self._col_block(b)]
-        rows = row_sharded(self.mesh, self.axis, n=self.n)
-        y = self._product(xc[rows], lambda: xc)
-        y = _gather(y, self.mesh.group(self.axis))
-        if self.batch_axis is not None:
-            y = _gather(y, self.mesh.group(self.batch_axis), dim=1)
-        y = y[:n_in]
-        return y[:, 0] if squeeze else y
+        with tracing.spmm_span(self, x):
+            squeeze = x.ndim == 1
+            if squeeze:
+                x = x[:, None]
+            n_in, b = x.shape
+            if n_in != self.n:
+                x = torch.nn.functional.pad(x, (0, 0, 0, self.n - n_in))
+            xc = x[:, self._col_block(b)]
+            rows = row_sharded(self.mesh, self.axis, n=self.n)
+            y = self._product(xc[rows], lambda: xc)
+            y = _gather(y, self.mesh.group(self.axis))
+            if self.batch_axis is not None:
+                y = _gather(y, self.mesh.group(self.batch_axis), dim=1)
+            y = y[:n_in]
+            return y[:, 0] if squeeze else y
 
     def __matmul__(self, x):
         return self.matmul(x)

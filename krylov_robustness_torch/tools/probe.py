@@ -4,9 +4,8 @@ Run from the root of a checkout (the graphs come from
 :mod:`krylov_robustness_torch.bench`, the paper protocol from
 ``chip_smoke.py``)::
 
-    python3 -m krylov_robustness_torch.tools.probe [solvers] [profile] \\
-        [budget] [gather] [weighted] [--out DIR] \\
-        [--variants NAME=VALUE[,...] ...]
+    python3 -m krylov_robustness_torch.tools.probe [solvers] [gather] \\
+        [weighted] [--out DIR] [--variants NAME=VALUE[,...] ...]
 
 ``solvers``: the spectra solver of the f32 fused lane on the hub graph. One
 fused block (k = 10) with the Sturm bisection (``eigvalsh_banded``, the
@@ -15,19 +14,10 @@ per-step lane: wall time, fused steps accepted, picks. Then both solvers
 timed with CUDA events on the stacked projections of the block's first
 scoring round.
 
-``profile``: ``torch.profiler`` over two per-step steps on the road and the
-hub graph and over one fused block (k = 10) on the hub graph. Prints wall
-time and device-busy time (the summed duration of the device's own events)
-per run, and writes each run's table, sorted by device time, to
-``DIR/profile_<run>.txt`` (default ``build/probe``).
-
-``budget``: the same over the budget sweep's step at Q = 50 on the road
-graph (K3 in f32 and f64, COO per-step and fused), tables to
-``DIR/budget_<run>.txt``.
-
 ``gather``: the four kernels that share the row gather of
 ``csrc/row_gather.cuh`` (K1, K2, K3 at b ≥ 32, K4) at the smoke's phase-3
-shapes, built into ``DIR/gather/<variant>/`` from the checkout's sources
+shapes, built into ``DIR/gather/<variant>/`` (default ``build/probe``)
+from the checkout's sources
 with their constants and types as they are and as each ``--variants`` entry
 sets them (``UNROLL=8``, ``ROWS_PER_WARP=8,WARPS=2``, ``K2F32Sum=float``),
 each held against the plain version and timed with CUDA events in turns
@@ -40,7 +30,8 @@ costs.
 
 ``weighted``: ``torch.profiler`` over one ``fun_and_grad`` of the smoke's
 Vermont-scale rewiring problem (``chip_smoke.vermont_problem``, f = sinh,
-COO f64) at x = 0.3·ub, after one warm-up call: wall, device busy, and each
+COO f64) at x = 0.3·ub, after one warm-up call: wall, device busy (the
+union of the device's event intervals, ``utils/tracing.py``), and each
 stage's host time and its span on the device timeline (the Arnoldi steps,
 their COO products and CholQR, every ``eigh``, the Lanczos objective and its
 products), table to ``DIR/weighted_fun_and_grad.txt``.
@@ -62,6 +53,7 @@ import numpy as np
 import torch
 
 from ..bench import hub_graph, road_graph
+from ..utils import tracing
 
 
 def _cuda_ms(fn, reps: int = 5) -> float:
@@ -126,90 +118,6 @@ def probe_solvers(smoke, dev) -> None:
     print(f"[solvers] stacked projections {tuple(stacked.shape)} f32: Sturm "
           f"{ms_sturm:.2f} ms, eigvalsh {ms_eigh:.2f} ms a call; largest "
           f"eigenvalue gap {gap:.3e} at scale {scale:.3e}")
-
-
-def probe_profile(smoke, dev, out: Path) -> None:
-    import scipy.sparse as sp
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from ..optimize.greedy import greedy_krylov
-
-    out.mkdir(parents=True, exist_ok=True)
-    road = sp.csr_matrix(road_graph(), dtype=np.float64)
-    hub = hub_graph()
-    for name, A, k, fused_steps in (("road_break_perstep_k2", road, 2, 0),
-                                    ("hub_break_perstep_k2", hub, 2, 0),
-                                    ("hub_break_fused_k10", hub, 10, 10)):
-        c, _, sigma, tol = smoke.protocol(A, torch.float32)
-        _run(greedy_krylov, A, c, sigma, tol, dev, 1, 0)  # warm-up
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            r, wall = _run(greedy_krylov, A, c, sigma, tol, dev, k,
-                           fused_steps)
-        busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                      if e.device_type == DeviceType.CUDA)
-        launches = sum(1 for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        table = prof.key_averages().table(sort_by="self_cuda_time_total",
-                                          row_limit=40)
-        (out / f"profile_{name}.txt").write_text(table)
-        print(f"[profile] {name}: wall {wall * 1e3:.1f} ms, device busy "
-              f"{busy_us / 1e3:.1f} ms ({100 * busy_us / 1e3 / (wall * 1e3):.1f}%"
-              f" of wall), device events {launches}, per-step ms "
-              f"{[round(float(t) * 1e3, 2) for t in r.per_step_time]}")
-        print("\n".join(table.splitlines()[:14]))
-
-
-def probe_budget(smoke, dev, out: Path) -> None:
-    """The budget sweep's greedy step (Q = 50, break, no shift, tol 1e-6·
-    exp(‖A‖)) on the road graph under ``torch.profiler``: two per-step
-    steps on K3 in f32 and f64 and on COO in f32, and one fused block
-    (k = 10) on COO, the lane ``backend='coo'`` takes for the sweep's
-    ``fused_steps=10``."""
-    import scipy.sparse as sp
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from ..funm.normest import normest2_host
-    from ..graphs.centrality import compute_centrality_host
-    from ..ops import banded_spmm
-    from ..optimize.greedy import greedy_krylov
-
-    out.mkdir(parents=True, exist_ok=True)
-    A = sp.csr_matrix(road_graph(), dtype=np.float64)
-    c = compute_centrality_host(A, "eig")
-    tol = 1e-6 * float(np.exp(normest2_host(A, tol=1e-2)))
-    for name, dtype, backend, k, fused_steps in (
-            ("k3_f32_perstep_k2", torch.float32, "auto", 2, 0),
-            ("k3_f64_perstep_k2", torch.float64, "auto", 2, 0),
-            ("coo_f32_perstep_k2", torch.float32, "coo", 2, 0),
-            ("coo_f32_fused_k10", torch.float32, "coo", 10, 10)):
-        def run(k):
-            return greedy_krylov(A, k, 50, c, order="min", tol=tol,
-                                 mode="break", dtype=dtype, backend=backend,
-                                 fused_steps=fused_steps, device=dev)
-
-        run(1)  # warm-up
-        before = banded_spmm.launches_ell
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            r = run(k)
-        wall = time.perf_counter() - t0
-        busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                      if e.device_type == DeviceType.CUDA)
-        table = prof.key_averages().table(sort_by="self_cuda_time_total",
-                                          row_limit=40)
-        (out / f"budget_{name}.txt").write_text(table)
-        print(f"[budget] {name}: {r.operator}, fused steps "
-              f"{r.fused_accepted}, K3 launches "
-              f"{banded_spmm.launches_ell - before}, wall {wall * 1e3:.1f} "
-              f"ms, device busy {busy_us / 1e3:.1f} ms "
-              f"({100 * busy_us / 1e3 / (wall * 1e3):.1f}% of wall), "
-              f"per-step ms "
-              f"{[round(float(t) * 1e3, 2) for t in r.per_step_time]}")
-        print("\n".join(table.splitlines()[:14]))
 
 
 GATHER_VARIANTS = ("UNROLL=2", "UNROLL=8", "ROWS_PER_WARP=1",
@@ -405,7 +313,6 @@ def probe_weighted(smoke, dev, out: Path) -> None:
     import contextlib
     from unittest import mock
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from ..funm import dense
@@ -449,11 +356,7 @@ def probe_weighted(smoke, dev, out: Path) -> None:
             call()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    # the stages' ranges appear on the device timeline too, as user
-    # annotations: not device work
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA
-                  and not e.is_user_annotation)
+    busy_us = tracing.device_busy_us(prof)
     table = prof.key_averages().table(sort_by="self_cuda_time_total",
                                       row_limit=40)
     (out / "weighted_fun_and_grad.txt").write_text(table)
@@ -477,15 +380,13 @@ def probe_weighted(smoke, dev, out: Path) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probes", nargs="*",
-                    choices=["solvers", "profile", "budget", "gather",
-                             "weighted"],
-                    help="default: all five")
+                    choices=["solvers", "gather", "weighted"],
+                    help="default: all three")
     ap.add_argument("--out", type=Path, default=Path("build/probe"))
     ap.add_argument("--variants", nargs="*", default=GATHER_VARIANTS,
                     help="row-gather constants for the gather probe")
     args = ap.parse_args(argv)
-    args.probes = args.probes or ["solvers", "profile", "budget", "gather",
-                                  "weighted"]
+    args.probes = args.probes or ["solvers", "gather", "weighted"]
     if not torch.cuda.is_available():
         print("probe: CUDA is not available", file=sys.stderr)
         return 2
@@ -496,10 +397,6 @@ def main(argv=None) -> int:
     smoke.phase_device()
     if "solvers" in args.probes:
         probe_solvers(smoke, dev)
-    if "profile" in args.probes:
-        probe_profile(smoke, dev, args.out)
-    if "budget" in args.probes:
-        probe_budget(smoke, dev, args.out)
     if "gather" in args.probes:
         probe_gather(smoke, dev, args.out, args.variants)
     if "weighted" in args.probes:

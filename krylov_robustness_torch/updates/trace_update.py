@@ -39,6 +39,7 @@ from ..krylov.lanczos import (
     lanczos_continue,
     lanczos_start,
 )
+from ..utils import tracing
 
 DEFAULT_SCHEDULE = (6, 6, 8, 12, 20, 28, 20)  # cumulative 100 = reference max it
 DENSE_N_CUTOFF = 130  # reference trace_fun_update.m:37
@@ -95,8 +96,9 @@ def _eigvals_banded_batch(band: np.ndarray, pool) -> np.ndarray:
         out[c] = scipy.linalg.eigvals_banded(band[c], lower=True,
                                              check_finite=False)
 
-    for fut in [pool.submit(one, c) for c in range(batch)]:
-        fut.result()
+    with tracing.span("spectra.eig", batch, M):
+        for fut in [pool.submit(one, c) for c in range(batch)]:
+            fut.result()
     return out
 
 
@@ -257,6 +259,7 @@ def _trace_update_host_eigh(A, U0, B, fun, tol, schedule, lag,
     delta = np.zeros((batch,), np.float64)
     iters = np.zeros((batch,), np.int32)
     converged = np.zeros((batch,), bool)
+    used = np.zeros((batch,), np.int64)  # steps to acceptance or the end
     # In f32 the lag error reaches a floor and then drifts back up (Lanczos
     # ghosts once a Ritz pair converges): keep the minimum-lag-error iterate
     # per candidate and return it when the tolerance is never met.
@@ -281,8 +284,9 @@ def _trace_update_host_eigh(A, U0, B, fun, tol, schedule, lag,
                 lucky = np.where(lucky < have, lucky,
                                  have + blocks2.lucky_step.cpu().numpy())
                 have = m_done
-            band_t, band_g = _band_from_blocks(
-                h_np[:, act], beta_np[:, act], Cm[act], m_done, bs)
+            with tracing.span("spectra.band", len(act), m_done * bs):
+                band_t, band_g = _band_from_blocks(
+                    h_np[:, act], beta_np[:, act], Cm[act], m_done, bs)
             M_lag = (m_done - lag) * bs
             x_lag = _trace_fun_difference_np(
                 _eigvals_banded_batch(band_t[:, :, :M_lag], pool),
@@ -304,8 +308,10 @@ def _trace_update_host_eigh(A, U0, B, fun, tol, schedule, lag,
             iters[upd] = m_done
             best_err[act] = np.minimum(best_err[act], err)
             converged[act] = newly
+            used[act] = m_done  # accepted here, or still running
             if converged.all():
                 break
+    tracing.count("krylov.steps_used", int(used.sum()))
     return TraceUpdateResult(
         delta=torch.from_numpy(delta).to(dtype),
         iters=torch.from_numpy(iters),
@@ -372,6 +378,16 @@ def trace_fun_update_edges(
     ``MAX_SCORE_CELLS`` run as fixed-width chunks, the last padded with a
     repeated edge."""
     edges = np.asarray(edges, np.int64).reshape(-1, 2)
+    with tracing.span("scorer", len(edges)):
+        return _score_edges(A, edges, sign, fun, tol, rescale, schedule,
+                            phases, shift)
+
+
+def _score_edges(A, edges: np.ndarray, sign: float, fun, tol: float,
+                 rescale: float, schedule, phases,
+                 shift: float) -> TraceUpdateResult:
+    """:func:`trace_fun_update_edges` inside its span: the padding and
+    chunks recurse here."""
     batch = len(edges)
     # an operator whose product shards its columns over a 'cands' mesh axis
     # (parallel/spmm_sharded.py) needs the batch divisible by that axis: pad
@@ -380,11 +396,10 @@ def trace_fun_update_edges(
     pad_mult = int(A.mesh.shape[ba]) if ba else 1
     if batch % pad_mult:
         padded = -(-batch // pad_mult) * pad_mult
-        r = trace_fun_update_edges(
+        r = _score_edges(
             A, np.concatenate([edges, np.repeat(edges[:1], padded - batch,
                                                 0)]),
-            sign, fun=fun, tol=tol, rescale=rescale, schedule=schedule,
-            phases=phases, shift=shift)
+            sign, fun, tol, rescale, schedule, phases, shift)
         return TraceUpdateResult(delta=r.delta[:batch], iters=r.iters[:batch],
                                  converged=r.converged[:batch])
     chunk = max(64, (int(MAX_SCORE_CELLS) // max(int(A.n), 1)) // 64 * 64)
@@ -396,9 +411,8 @@ def trace_fun_update_edges(
             keep = len(e)
             if keep < chunk:
                 e = np.concatenate([e, np.repeat(e[:1], chunk - keep, 0)])
-            r = trace_fun_update_edges(
-                A, e, sign, fun=fun, tol=tol, rescale=rescale,
-                schedule=schedule, phases=phases, shift=shift)
+            r = _score_edges(A, e, sign, fun, tol, rescale, schedule,
+                             phases, shift)
             parts.append((r, keep))
         return TraceUpdateResult(
             delta=torch.cat([r.delta[:k].cpu() for r, k in parts]),

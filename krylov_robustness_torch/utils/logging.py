@@ -17,6 +17,8 @@ import re
 import time
 from pathlib import Path
 
+from .tracing import span
+
 UNWEIGHTED_COLUMNS = [
     "method", "dataset", "n", "m", "searchspace_size", "centrality_order",
     "time", "tr_variation", "budget_size",
@@ -145,8 +147,5 @@ class Timer:
         return dt
 
 
-def trace_annotation(name: str):
-    """A named range in a ``torch.profiler`` trace (SURVEY.md §5.1)."""
-    import torch
-
-    return torch.profiler.record_function(name)
+# the JAX package's name for a named profiler range (SURVEY.md §5.1)
+trace_annotation = span
