@@ -10,8 +10,9 @@ Phases, each of which raises on failure (exit code 1):
 1. device: the card's name and power limit, torch/CUDA versions, TF32 off;
 2. build: compile the kernels K1/K2 (``csrc/bsr_super.cu``), K3
    (``csrc/banded_ell.cu``) and K4 (``csrc/bsr_flat.cu``; all four share the
-   row gather of ``csrc/row_gather.cuh``, K3 from b = 32 on) with nvcc, one
-   process per source, in parallel;
+   row gather of ``csrc/row_gather.cuh``, K3 from b = 32 on) and the block
+   step (``csrc/block_mgs.cu``) with nvcc, one process per source, in
+   parallel;
 3. kernels: each kernel against its plain torch version and scipy, with
    CUDA-event times beside the plain version's, the COO SpMM's and one
    cuSPARSE call's (``torch.sparse.mm`` on a CSR tensor, the yardstick the
@@ -26,6 +27,19 @@ Phases, each of which raises on failure (exit code 1):
    graph; K2 f32 on the hub graph also on a second, independently drawn x);
    the hub graph's flat blocks exceed their budget, so
    ``make_bsr_operator`` falls back to COO there;
+3b. block step (``ops/block_mgs.py``, ``csrc/block_mgs.cu``): the kernel
+   chains against the einsum step and against that step in f64, in f32 and
+   f64, the narrow chain at the main paths' widths (b = 500 and 100 on the
+   road graph, 520 on the hub graph), the wide one at a rescored joint
+   edit's, CONFIG 5's and the weighted objective's (bs = 5, 8, 20, 60), each
+   also on a w that the first MGS pass nearly cancels (Q's overlap with the
+   window then shows a missing second pass), with members dead on entry, on
+   twin nodes that must deflate and on members that break down fully; two
+   runs give identical bits; a 20-step recurrence through each chain held
+   against the f64 recurrence (h, beta, loss of orthogonality); CUDA-event
+   times of the chain and the einsum step beside the least time (four blocks
+   at 3.35 TB/s); then ``krylov.steps_kernel`` equals ``krylov.steps_run``
+   over a scoring call on each graph and a weighted-width call;
 4. greedy path, road graph: ``greedy_krylov`` break/make on the per-step
    lane through K1 (f32) and K2 (f64), picks held against the COO backend;
 5. greedy path, hub graph: the fused lane with σ-shift, picks held against
@@ -87,7 +101,9 @@ Phases, each of which raises on failure (exit code 1):
    tables).
 
 Each path (4-5, 6, 7, 8, 9, 10, 11) runs with every launch count set to 0
-just before it and read just after; the 2-rank halves of paths 10 and 11 run
+just before it and read just after (``MGS``: the launches of the block
+step's kernel chain, which every path must take, and ``MGS steps`` the
+member-steps through it); the 2-rank halves of paths 10 and 11 run
 in their own processes, which check and report their own counts. The line
 before the last is a JSON object with one entry per kernel (its count on the path that
 runs it, errors and times of phase 3); the last line is ``{"ok": true, "device": {...}}``. Without CUDA
@@ -117,12 +133,14 @@ import torch
 SOURCES = {"K1": "krylov_robustness_torch/csrc/bsr_super.cu",
            "K2": "krylov_robustness_torch/csrc/bsr_super.cu",
            "K3": "krylov_robustness_torch/csrc/banded_ell.cu",
-           "K4": "krylov_robustness_torch/csrc/bsr_flat.cu"}
+           "K4": "krylov_robustness_torch/csrc/bsr_flat.cu",
+           "MGS": "krylov_robustness_torch/csrc/block_mgs.cu"}
 REPLACES = {
     "K1": "krylov_robustness_tpu/ops/pallas_bsr_super.py:97",
     "K2": "krylov_robustness_tpu/ops/pallas_bsr_super.py:82",
     "K3": "krylov_robustness_tpu/ops/pallas_spmm.py:51",
     "K4": "krylov_robustness_tpu/ops/pallas_bsr.py:49",
+    "MGS": "none (XLA's einsums in krylov_robustness_tpu/krylov/lanczos.py)",
 }
 # relative to max|A x|: the first two mirror tests/test_pallas_bsr_super.py
 GATES = {"bf16x2": 3e-5, "bf16x3": 3e-7, "f32": 1e-6, "f64": 1e-12}
@@ -453,6 +471,380 @@ def phase_flat_fallback(dev, H) -> None:
           f"the COO fallback")
     check(np.array_equal(perm, np.arange(H.shape[0])),
           "hub graph: the COO fallback is not in the identity order")
+
+
+# The block step after the SpMM (ops/block_mgs.py). Its narrow chain at the
+# main paths' widths b = 2·batch (bs = 2): the road break cell's 500, the
+# budget cell's 100 and the hub's 520 (a fused block's Q + R); its wide chain
+# at a joint edit's rescoring (bs = 5, and 8 for each of three members),
+# CONFIG 5's 10 rewired edges (bs = 20) and the weighted objective's 30
+# modifiable edges (bs = 60), one member each. Every check holds the kernel
+# against the plain version in f64 and allows MGS_TIMES what the einsum step
+# errs by there (in f32 the f32 step; in f64 the f64 step on the rows in
+# reverse order, its own rounding), or MGS_FLOOR machine epsilons of the
+# largest entry if that is more.
+MGS_WIDTHS = (("road", 250), ("road", 50), ("hub", 260))
+MGS_WIDE = ((1, 5), (3, 8), (1, 20), (1, 60))  # (batch, bs) on the road graph
+MGS_TIMES, MGS_FLOOR = 4.0, 64.0
+MGS_STEPS = 20  # the host-eigh scorer's speculated steps
+# w = vp·C + vc·D + δ·Z: the first MGS pass cancels all but δ of w, so
+# rounding leaves about eps/δ of [vp, vc] in its result, which only the
+# second pass removes
+MGS_CANCEL = {torch.float32: 1e-4, torch.float64: 1e-6}
+
+
+def _test_helpers():
+    """tests/helpers.py, where the CPU tests' twin-node and breakdown
+    fixtures live."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / "helpers.py"
+    spec = importlib.util.spec_from_file_location("krt_test_helpers", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def mgs_start(dev, A, U, dtype):
+    """A COO operator of A and the start state from blocks U (batch, n, bs),
+    both in ``dtype`` on the card."""
+    from krylov_robustness_torch.krylov import lanczos
+    from krylov_robustness_torch.ops.sparse import CooMatrix
+
+    op = CooMatrix.from_scipy(A, dtype=dtype, device=dev)
+    state, _ = lanczos.lanczos_start(
+        op, torch.as_tensor(U, dtype=dtype, device=dev))
+    return op, state
+
+
+def mgs_run(op, state, steps: int, step):
+    """``steps`` block steps from ``state``, each through ``step`` (the
+    wrapper ``block_mgs`` or the plain version); returns (vp, vc, w = A·vc,
+    alive) of the next step, the stacked h and beta, and the blocks V_1 …
+    V_{steps+1}."""
+    from krylov_robustness_torch.krylov import lanczos
+
+    vp, vc, alive = state
+    hs, betas, blocks = [], [], [vc]
+    for _ in range(steps):
+        w = lanczos._spmm_nb(op, vc)
+        q, h, beta, alive = step(vp, vc, w, alive, lanczos.LUCKY_TOL)
+        vp, vc = vc, q.contiguous()  # the einsums may leave it permuted
+        hs.append(h)
+        betas.append(beta)
+        blocks.append(vc)
+    nxt = (vp, vc, lanczos._spmm_nb(op, vc), alive)
+    return (nxt, torch.stack(hs) if steps else None,
+            torch.stack(betas) if steps else None, blocks)
+
+
+def mgs_advance(op, state, steps: int):
+    """(vp, vc, w, alive) after ``steps`` steps of the plain version (so the
+    inputs never rest on the kernel)."""
+    from krylov_robustness_torch.ops.block_mgs import block_mgs_plain
+
+    return mgs_run(op, state, steps, block_mgs_plain)[0]
+
+
+def mgs_blocks(n: int, batch: int, bs: int, A=None):
+    """Start blocks (batch, n, bs) of unit columns: a scoring call's [e_i,
+    e_j] on ``batch`` edges of A at bs = 2, else ``bs`` distinct nodes a
+    member (a joint edit's or a weighted problem's touched nodes); drawn
+    with the seed 1000·bs + batch."""
+    rng = np.random.default_rng(1000 * bs + batch)
+    U = np.zeros((batch, n, bs))
+    if bs == 2:
+        C = sp.coo_matrix(sp.triu(A, 1))
+        pick = rng.choice(C.nnz, batch, replace=False)
+        U[np.arange(batch), C.row[pick], 0] = 1.0
+        U[np.arange(batch), C.col[pick], 1] = 1.0
+        return U
+    for m in range(batch):
+        U[m, rng.choice(n, bs, replace=False), np.arange(bs)] = 1.0
+    return U
+
+
+def mgs_inputs(dev, A, batch: int, dtype, bs: int = 2):
+    """(vp, vc, w, alive) four plain steps into a recurrence from
+    :func:`mgs_blocks`."""
+    U = mgs_blocks(A.shape[0], batch, bs, A)
+    return mgs_advance(*mgs_start(dev, A, U, dtype), 4)
+
+
+def mgs_yardstick(inputs):
+    """The einsum step on ``inputs``: in f32 as it stands, in f64 on the
+    rows in reverse order (Q put back in order)."""
+    from krylov_robustness_torch.krylov.lanczos import LUCKY_TOL
+    from krylov_robustness_torch.ops.block_mgs import block_mgs_plain
+
+    vp, vc, w, alive = inputs
+    if w.dtype == torch.float32:
+        return block_mgs_plain(vp, vc, w, alive, LUCKY_TOL)
+
+    def flip(t):
+        return t.flip(0).contiguous()
+
+    q, h, beta, a = block_mgs_plain(flip(vp), flip(vc), flip(w), alive,
+                                    LUCKY_TOL)
+    return flip(q), h, beta, a
+
+
+def mgs_gate(label: str, what: str, ek: float, ep: float, dtype) -> None:
+    gate = max(MGS_TIMES * ep, MGS_FLOOR * torch.finfo(dtype).eps)
+    check(ek <= gate, f"block_mgs {label} {what}: kernel {ek:.3e}, einsum "
+          f"step {ep:.3e}, gate {gate:.3e}")
+
+
+def mgs_orth(vs, q) -> float:
+    """max |[vp, vc]ᵀ Q| over the members, in f64."""
+    q = q.double()
+    return max(float(torch.einsum("nbk,nbl->bkl", v.double(), q).abs().max())
+               for v in vs)
+
+
+def mgs_hold(label: str, inputs) -> dict:
+    """The kernel chain on ``inputs`` (vp, vc, w, alive) twice (identical
+    bits), against the plain version in f64 beside the einsum step
+    (:func:`mgs_yardstick`): Q, h and beta, and Q's overlap with [vp, vc];
+    returns the kernel's and the einsum step's errors and the kernel's
+    outputs."""
+    from krylov_robustness_torch.krylov.lanczos import LUCKY_TOL
+    from krylov_robustness_torch.ops import block_mgs as bm
+
+    vp, vc, w, alive = inputs
+    dtype = w.dtype
+    check(bm.on_kernel_path(vp, vc, w, alive),
+          f"block_mgs {label}: the inputs do not take the kernel")
+    out = bm.block_mgs_cuda(vp, vc, w, alive, LUCKY_TOL)
+    again = bm.block_mgs_cuda(vp, vc, w, alive, LUCKY_TOL)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out, again)),
+          f"block_mgs {label}: two runs differ")
+    plain = mgs_yardstick(inputs)
+    ref = bm.block_mgs_plain(vp.double(), vc.double(), w.double(), alive,
+                             LUCKY_TOL)
+    check(torch.equal(out[3], ref[3]) and torch.equal(plain[3], ref[3]),
+          f"block_mgs {label}: alive kernel {out[3].tolist()} plain "
+          f"{plain[3].tolist()} f64 {ref[3].tolist()}")
+    errs, worst = {}, 0.0
+    for i, name in enumerate(("Q", "h", "beta")):
+        scale = float(ref[i].abs().max()) or 1.0
+        diff = float((out[i].double() - ref[i]).abs().max())
+        worst = max(worst, diff)
+        errs[name] = (diff / scale,
+                      float((plain[i].double() - ref[i]).abs().max()) / scale)
+    errs["[vp vc]'Q"] = (mgs_orth((vp, vc), out[0]),
+                         mgs_orth((vp, vc), plain[0]))
+    for name, (ek, ep) in errs.items():
+        mgs_gate(label, name, ek, ep, dtype)
+    print(f"[block_mgs] {label}: identical reruns; kernel / einsum step "
+          f"error against f64 over the largest entry: " + ", ".join(
+              f"{k} {a:.2e} / {b:.2e}" for k, (a, b) in errs.items()))
+    return {"errs": errs, "out": out, "max_abs_err": worst}
+
+
+def mgs_cancel(dev, inputs, seed: int):
+    """``inputs`` with w replaced by vp·C + vc·D + δ·Z (C, D, Z seeded
+    normal, Z's columns of norm 1, δ from :data:`MGS_CANCEL`)."""
+    vp, vc, w, alive = inputs
+    n, batch, bs = w.shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    C, D = (torch.randn((batch, bs, bs), generator=g, device=dev,
+                        dtype=torch.float64) for _ in range(2))
+    Z = torch.randn((n, batch, bs), generator=g, device=dev,
+                    dtype=torch.float64)
+    Z = Z / Z.norm(dim=0, keepdim=True)
+    w = (torch.einsum("nbk,bkl->nbl", vp.double(), C) +
+         torch.einsum("nbk,bkl->nbl", vc.double(), D) +
+         MGS_CANCEL[w.dtype] * Z)
+    return vp, vc, w.to(vp.dtype).contiguous(), alive
+
+
+def mgs_orth_loss(blocks) -> float:
+    """max over the members of |VᵀV − I| for V = [V_1 … V_k], in f64; a
+    deflated (zero) column counts against 0, not 1."""
+    V = torch.cat([b.double() for b in blocks], dim=2)
+    G = torch.einsum("nbk,nbl->bkl", V, V)
+    d = torch.diagonal(G, dim1=-2, dim2=-1)
+    eye = torch.diag_embed((d > 0.5).to(G.dtype))
+    return float((G - eye).abs().max())
+
+
+def mgs_recurrence(dev, label: str, A, U, dtype) -> None:
+    """MGS_STEPS steps through the kernel (the wrapper, as lanczos_step
+    calls it) and through the einsum step, each from the start state in
+    ``dtype``, against the plain recurrence in f64 (in f64 the yardstick
+    runs on the rows in reverse order): h, beta and the loss of
+    orthogonality of all the blocks."""
+    from krylov_robustness_torch.ops import block_mgs as bm
+
+    n = A.shape[0]
+    op, state = mgs_start(dev, A, U, dtype)
+    _, h, beta, V = mgs_run(op, state, MGS_STEPS, bm.block_mgs)
+    if dtype == torch.float32:
+        _, hp, betap, Vp = mgs_run(op, state, MGS_STEPS, bm.block_mgs_plain)
+    else:
+        rev = np.arange(n)[::-1]
+        Ar = sp.csr_matrix(A)[rev][:, rev]
+        opr, stater = mgs_start(dev, Ar, U[:, rev], dtype)
+        _, hp, betap, Vp = mgs_run(opr, stater, MGS_STEPS,
+                                   bm.block_mgs_plain)
+    op64, state64 = mgs_start(dev, A, U, torch.float64)
+    _, h64, beta64, _ = mgs_run(op64, state64, MGS_STEPS, bm.block_mgs_plain)
+    errs = {}
+    for name, k, p, r in (("h", h, hp, h64), ("beta", beta, betap, beta64)):
+        scale = float(r.abs().max()) or 1.0
+        errs[name] = (float((k.double() - r).abs().max()) / scale,
+                      float((p.double() - r).abs().max()) / scale)
+    errs["|V'V - I|"] = (mgs_orth_loss(V), mgs_orth_loss(Vp))
+    for name, (ek, ep) in errs.items():
+        mgs_gate(f"{label}, {MGS_STEPS} steps", name, ek, ep, dtype)
+    print(f"[block_mgs] {label}, {MGS_STEPS} steps through the chain: "
+          f"kernel / einsum step against the f64 recurrence: " + ", ".join(
+              f"{k} {a:.2e} / {b:.2e}" for k, (a, b) in errs.items()))
+
+
+def mgs_time(label: str, inputs) -> dict:
+    """CUDA-event medians of the kernel chain and the einsum step on
+    ``inputs``, beside the least time: four blocks (vp, vc and w read, Q
+    written) at 3.35 TB/s."""
+    from krylov_robustness_torch.krylov.lanczos import LUCKY_TOL
+    from krylov_robustness_torch.ops import block_mgs as bm
+
+    vp, vc, w, alive = inputs
+    kernel = cuda_ms(lambda: bm.block_mgs_cuda(vp, vc, w, alive, LUCKY_TOL),
+                     reps=21, warmup=3)
+    plain = cuda_ms(lambda: bm.block_mgs_plain(vp, vc, w, alive, LUCKY_TOL))
+    least = 4 * w.numel() * w.element_size() / 3.35e12 * 1e3
+    print(f"[block_mgs] {label}: kernel chain {kernel:.4f} ms, einsum step "
+          f"{plain:.4f} ms ({plain / kernel:.1f}x), least {least:.4f} ms "
+          f"(kernel at {100 * least / kernel:.1f}% of it)")
+    return {"kernel_ms": kernel, "plain_ms": plain, "least_ms": least}
+
+
+def phase_block_mgs(dev, graphs) -> dict:
+    """The block step's kernel chains against the plain version on the
+    card: f32 and f64 at the main paths' widths (narrow chain) and at the
+    rescoring and weighted widths (wide chain), each also on a w that the
+    first MGS pass nearly cancels; members dead on entry, twin nodes that
+    deflate, members that break down fully; identical reruns; a
+    MGS_STEPS-step recurrence through each chain; per-step times; then
+    krylov.steps_kernel against krylov.steps_run, and the chain's launches,
+    over a scoring call on each graph and a weighted-width call."""
+    from krylov_robustness_torch.ops import block_mgs as bm
+    from krylov_robustness_torch.ops.sparse import CooMatrix
+    from krylov_robustness_torch.updates.trace_update import (
+        trace_fun_update_batched,
+        trace_fun_update_edges,
+    )
+    from krylov_robustness_torch.utils import tracing
+
+    helpers = _test_helpers()
+    road = graphs["road"]
+    stats = {}
+    cases = [(name, batch, 2) for name, batch in MGS_WIDTHS] + \
+        [("road", batch, bs) for batch, bs in MGS_WIDE]
+    for name, batch, bs in cases:
+        A = graphs[name]
+        for dtype in (torch.float32, torch.float64):
+            tag = str(dtype).split(".")[-1]
+            inputs = mgs_inputs(dev, A, batch, dtype, bs)
+            label = f"{name} n={A.shape[0]} batch={batch} bs={bs} {tag}"
+            held = mgs_hold(label, inputs)
+            stats[label] = {"max_abs_err": held["max_abs_err"],
+                            **mgs_time(label, inputs)}
+            mgs_hold(f"{label}, w nearly in [vp vc]",
+                     mgs_cancel(dev, inputs, batch * bs))
+            if (batch, bs) not in ((50, 2), (3, 8)):
+                continue
+            vp, vc, w, alive = inputs  # members dead on entry
+            alive = alive.clone()
+            alive[::2 if batch == 3 else 5] = False
+            q, h, beta, alive_next = mgs_hold(
+                f"{label}, members dead on entry", (vp, vc, w, alive))["out"]
+            dead = ~alive
+            check(not bool(alive_next[dead].any()) and
+                  not bool(h[dead].any()) and not bool(beta[dead].any()) and
+                  not bool(q[:, dead].any()),
+                  "block_mgs: a dead member emitted a nonzero block")
+
+    # twin nodes: one column deflates after the first step, nobody breaks;
+    # the wide chain's member holds both twin pairs beside two random columns
+    T, U = helpers.twin_graph()
+    Uw = np.concatenate([U[0], U[1], U[2]], axis=1)[None]  # (1, n, 6)
+    # full breakdown: see helpers.breakdown_graph; e_0 breaks down in f64,
+    # in f32 its residual may stay at rounding level, so f32 leaves it out
+    D, V = helpers.breakdown_graph()
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype).split(".")[-1]
+        op, state = mgs_start(dev, T, U, dtype)
+        held = mgs_hold(f"twins {tag}, step 1", mgs_advance(op, state, 0))
+        _, _, beta, alive = held["out"]
+        check(bool(alive.all()), "block_mgs twins: a member broke down")
+        check(not bool(beta[:2, 1, :].any()),
+              "block_mgs twins: the dependent column did not deflate")
+        op, state = mgs_start(dev, T, Uw, dtype)
+        _, _, beta, alive = mgs_hold(f"twins wide bs=6 {tag}, step 1",
+                                     mgs_advance(op, state, 0))["out"]
+        check(bool(alive.all()), "block_mgs wide twins: the member broke")
+        check(int((beta[0].abs().sum(dim=1) == 0).sum()) == 2,
+              f"block_mgs wide twins: not two rows deflated: {beta[0]}")
+        f64 = dtype == torch.float64
+        op, state = mgs_start(dev, D, V if f64 else V[1:], dtype)
+        for steps in range(4):
+            alive = mgs_hold(f"breakdown {tag}, step {steps + 1}",
+                             mgs_advance(op, state, steps))["out"][3]
+            check(alive.tolist()[-3:] == [True, False, False],
+                  f"block_mgs breakdown {tag}, step {steps + 1}: alive "
+                  f"{alive.tolist()}")
+        check(not (f64 and bool(alive[0])),
+              "block_mgs breakdown f64: e_0's member is alive after 4 steps")
+
+    n = road.shape[0]
+    mgs_recurrence(dev, "road batch=50 bs=2 float32", road,
+                   mgs_blocks(n, 50, 2, road), torch.float32)
+    hub = graphs["hub"]
+    mgs_recurrence(dev, "hub batch=260 bs=2 float32", hub,
+                   mgs_blocks(hub.shape[0], 260, 2, hub), torch.float32)
+    for dtype in (torch.float32, torch.float64):
+        mgs_recurrence(dev, f"road batch=1 bs=60 {dtype}".replace(
+            "torch.", ""), road, mgs_blocks(n, 1, 60), dtype)
+
+    def grew_over(fn):
+        keys = ("krylov.steps_kernel", "krylov.steps_run",
+                "krylov.launches.MGS")
+        before = tracing.counters()
+        fn()
+        after = tracing.counters()
+        return {k: after.get(k, 0) - before.get(k, 0) for k in keys}
+
+    for name in ("road", "hub"):
+        A = graphs[name]
+        C = sp.coo_matrix(sp.triu(A, 1))
+        edges = np.stack([C.row, C.col], axis=1)[:250]
+        op = CooMatrix.from_scipy(A, dtype=torch.float32, device=dev)
+        grew = grew_over(lambda: trace_fun_update_edges(
+            op, edges, sign=-1.0, tol=1e-3))
+        print(f"[block_mgs] scoring call on {name}, 250 edges: {grew}")
+        check(grew["krylov.steps_kernel"] == grew["krylov.steps_run"] > 0,
+              f"block_mgs: a step on {name} did not take the kernel: {grew}")
+    op = CooMatrix.from_scipy(road, dtype=torch.float64, device=dev)
+    U = torch.as_tensor(mgs_blocks(n, 1, 60), dtype=torch.float64,
+                        device=dev)
+    B = torch.zeros((1, 60, 60), dtype=torch.float64, device=dev)
+    B[0, np.arange(0, 60, 2), np.arange(1, 60, 2)] = 0.5
+    B = B + B.transpose(1, 2)
+    grew = grew_over(lambda: trace_fun_update_batched(op, U, B, fun="sinh",
+                                                      tol=1e-3))
+    print(f"[block_mgs] weighted-width call on road, bs=60 f64: {grew}")
+    check(grew["krylov.steps_kernel"] == grew["krylov.steps_run"] > 0 and
+          grew["krylov.launches.MGS"] ==
+          bm.LAUNCHES["wide"] * grew["krylov.steps_run"],
+          f"block_mgs: a wide step did not take the kernel: {grew}")
+    main = stats[f"road n={n} batch=250 bs=2 float32"]
+    return {"max_abs_err": main["max_abs_err"], "ms": main["kernel_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["least_ms"],
+            "bound_by": "bytes", "library_ms": None}
 
 
 class MainPathCapture:
@@ -1608,12 +2000,17 @@ def phase_surface(dev, graphs, root: Path) -> None:
 
 def launch_counts() -> dict:
     """Launches of each kernel in this process so far (the program's
-    ``spmm.launches.K1`` … ``K4`` counters)."""
+    ``spmm.launches.K1`` … ``K4`` and ``krylov.launches.MGS`` counters), and
+    the member-steps that went through the block step's kernel chain
+    (``krylov.steps_kernel``) as ``MGS steps``."""
     from krylov_robustness_torch.utils import tracing
 
     counts = tracing.counters()
-    return {k: counts.get(f"spmm.launches.{k}", 0)
-            for k in ("K1", "K2", "K3", "K4")}
+    out = {k: counts.get(f"spmm.launches.{k}", 0)
+           for k in ("K1", "K2", "K3", "K4")}
+    out["MGS"] = counts.get("krylov.launches.MGS", 0)
+    out["MGS steps"] = counts.get("krylov.steps_kernel", 0)
+    return out
 
 
 def launches(kernel: str) -> int:
@@ -1646,6 +2043,7 @@ def run(dev, root: Path) -> int:
     stats = phase_kernels(dev, graphs)
     stats.update(phase_road_kernels(dev, graphs["road"]))
     phase_flat_fallback(dev, graphs["hub"])
+    stats[("road", "MGS f32", 500)] = phase_block_mgs(dev, graphs)
     with MainPathCapture() as capture:
         greedy = drive("greedy", greedy_path, dev, graphs)
         budget = drive("budget", phase_budget, dev, graphs["road"], root)
@@ -1664,14 +2062,20 @@ def run(dev, root: Path) -> int:
           f"sharded path: a kernel was not launched: {sharded}")
     check(greedy["K1"] and greedy["K2"],
           f"greedy path: a kernel was not launched: {greedy}")
+    for path, counts in (("greedy", greedy), ("budget", budget),
+                         ("tables", tables), ("bench", benched),
+                         ("sharded", sharded)):
+        check(counts["MGS"] > 0,
+              f"{path} path: no step went through block_mgs: {counts}")
     check(budget["K3"] > 0, f"budget path: K3 was not launched: {budget}")
     check(tables["K1"] > 0, f"tables path: K1 was not launched: {tables}")
     check(benched["K4"] > 0 and benched["K1"] > 0,
           f"bench path: a kernel was not launched: {benched}")
-    check(not any(weighted.values()),
-          f"weighted path: a kernel was launched: {weighted}")
-    check(not any(config5.values()),
-          f"config5 path: a kernel was launched: {config5}")
+    for path, counts in (("weighted", weighted), ("config5", config5)):
+        check(not any(counts[k] for k in ("K1", "K2", "K3", "K4")),
+              f"{path} path: an SpMM kernel was launched: {counts}")
+        check(counts["MGS"] > 0,
+              f"{path} path: no step went through block_mgs: {counts}")
     replayed = capture.replay()
     check("K4" in replayed, "replay: no K4 launch was kept")
     entries = (("K1", "K1 tile_spmm_bf16 (bf16x2)", greedy,
@@ -1679,10 +2083,13 @@ def run(dev, root: Path) -> int:
                ("K2", "K2 tile_spmm_full (f64)", greedy,
                 ("road", "f64", 512)),
                ("K3", "K3 ell_spmm (f32)", budget, ("road", "K3 f32", 100)),
-               ("K4", "K4 bsr_spmm (f32)", benched, ("road", "K4 f32", 512)))
+               ("K4", "K4 bsr_spmm (f32)", benched, ("road", "K4 f32", 512)),
+               ("MGS", "block_mgs step chain (f32)", greedy,
+                ("road", "MGS f32", 500)))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[k],
          "replaces": REPLACES[k], "launches": counts[k],
+         **({"member_steps": counts["MGS steps"]} if k == "MGS" else {}),
          **{e: stats[key][e] for e in ENTRY_KEYS}}
         for k, name, counts, key in entries]}))
     print(json.dumps({"ok": True, "device": {

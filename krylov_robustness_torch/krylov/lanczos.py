@@ -9,6 +9,8 @@ against them with a twice-applied block MGS (``lanczos_krylov.m:109-115``);
 block QR is Cholesky-QR with per-column deflation. Lucky breakdown
 (``lanczos_krylov.m:91-93``) becomes a per-member mask: dead members emit
 zero blocks, which add decoupled zero eigenvalues that cancel downstream.
+All of a step but its SpMM is ``ops/block_mgs.py``: a hand-written kernel
+chain for CUDA blocks, the torch einsum step for CPU ones.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.block_mgs import block_mgs
+from ..ops.block_mgs import chol_qr as _chol_qr
 from ..utils import tracing
 
 LUCKY_TOL = 1e-8  # reference lanczos_krylov.m:74
@@ -48,75 +52,24 @@ def _spmm_nb(A, x: torch.Tensor) -> torch.Tensor:
     return (A @ x.reshape(n, b * bs)).reshape(n, b, bs)
 
 
-def _chol_qr(w: torch.Tensor, eps: float):
-    """Batched Cholesky QR of n-major (n, batch, bs) blocks with per-column
-    deflation. Returns (Q, R, ok); ``ok`` is False only on full-block
-    breakdown (‖w‖_F < eps). Partially dependent columns (twin nodes) are
-    deflated — zeroed in Q and in the matching rows of R — instead of
-    completed, so they add exact decoupled zero rows to the projection.
-
-    ``torch.linalg.cholesky`` raises where JAX's returns NaN, so the
-    factorization runs through ``cholesky_ex`` and a nonzero ``info`` (or a
-    NaN) marks the member as broken down, as the NaN test does in JAX.
-    """
-    G = torch.einsum("nbk,nbl->bkl", w, w)
-    bs = w.shape[-1]
-    frob2 = torch.diagonal(G, dim1=-2, dim2=-1).sum(-1)
-    ok = frob2 > eps * eps
-    eps_m = torch.finfo(w.dtype).eps
-    eye = torch.eye(bs, dtype=w.dtype, device=w.device)
-    reg = frob2 * (eps_m * 16.0) + eps * eps
-    L, info = torch.linalg.cholesky_ex(G + reg[:, None, None] * eye[None])
-    bad = (info != 0) | torch.isnan(L).any(dim=(-1, -2))
-    ok = ok & ~bad
-    L = torch.where(ok[:, None, None], L, eye[None])
-    # deflate columns whose pivot is pure ridge/rounding noise
-    keep = torch.diagonal(L, dim1=-2, dim2=-1).square() > (
-        frob2[:, None] * (eps_m * 256.0))
-    R = L.transpose(-1, -2)  # upper triangular, w = Q R
-    Rinv = torch.linalg.solve_triangular(R, eye.expand(R.shape), upper=True,
-                                         left=True)
-    Q = torch.einsum("nbk,bkl->nbl", w, Rinv)
-    Q = Q * keep[None, :, :].to(w.dtype)
-    R = R * keep[:, :, None].to(w.dtype)
-    Q = torch.where(ok[None, :, None], Q, torch.zeros_like(Q))
-    R = torch.where(ok[:, None, None], R, torch.zeros_like(R))
-    return Q, R, ok
-
-
 def lanczos_start(A, B0: torch.Tensor, lucky_tol: float = LUCKY_TOL):
     """Orthonormalize the start block (``lanczos_krylov.m:49``). B0 is
     (batch, n, bs), transposed once into the n-major layout. Returns
-    (state, R0) with B0 = V1·R0."""
+    (state, R0) with B0 = V1·R0. The blocks of the state are contiguous,
+    as the step's kernel takes them."""
     Q, R, ok = _chol_qr(B0.permute(1, 0, 2).contiguous(), lucky_tol)
+    Q = Q.contiguous()
     return LanczosState(v_prev=torch.zeros_like(Q), v_cur=Q, alive=ok), R
 
 
 def lanczos_step(A, state: LanczosState, lucky_tol: float = LUCKY_TOL):
     """One block step: SpMM + double MGS against the 2-block window + CholQR
-    (``add_inf_pole``, ``lanczos_krylov.m:73-101``)."""
+    (``add_inf_pole``, ``lanczos_krylov.m:73-101``); all but the SpMM in
+    ``ops/block_mgs.py``."""
     vp, vc, alive = state
     with tracing.span("krylov", vc):
         w = _spmm_nb(A, vc)
-
-        def proj(w):
-            hp = torch.einsum("nbk,nbl->bkl", vp, w)
-            hc = torch.einsum("nbk,nbl->bkl", vc, w)
-            w = w - torch.einsum("nbk,bkl->nbl", vp, hp)
-            w = w - torch.einsum("nbk,bkl->nbl", vc, hc)
-            return w, hp, hc
-
-        w, hp1, hc1 = proj(w)
-        w, hp2, hc2 = proj(w)  # second MGS pass (lanczos_krylov.m:112-114)
-        h = torch.cat([hp1 + hp2, hc1 + hc2], dim=-2)  # (batch, 2bs, bs)
-
-        Q, beta, ok = _chol_qr(w, lucky_tol)
-        alive_next = alive & ok
-        # dead batch members emit zero blocks from here on
-        h = torch.where(alive[:, None, None], h, torch.zeros_like(h))
-        beta = torch.where(alive_next[:, None, None], beta,
-                           torch.zeros_like(beta))
-        Q = torch.where(alive_next[None, :, None], Q, torch.zeros_like(Q))
+        Q, h, beta, alive_next = block_mgs(vp, vc, w, alive, lucky_tol)
     return LanczosState(v_prev=vc, v_cur=Q, alive=alive_next), h, beta
 
 

@@ -21,7 +21,8 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"bsr_super": _CSRC / "bsr_super.cu",
            "banded_ell": _CSRC / "banded_ell.cu",
-           "bsr_flat": _CSRC / "bsr_flat.cu"}
+           "bsr_flat": _CSRC / "bsr_flat.cu",
+           "block_mgs": _CSRC / "block_mgs.cu"}
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -81,10 +82,12 @@ def build_kernels(names=tuple(SOURCES)) -> dict[str, tuple[Path, float]]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of one source, built first if needed. The caller
+    """The loaded library of one source. The first call of a process builds
+    every source that is missing, all at once, so that a fresh checkout
+    waits for the slowest ``nvcc`` and not for their sum. The caller
     declares ``argtypes`` and ``restype`` of the functions it calls."""
     if name not in _LIBS:
-        _LIBS[name] = ctypes.CDLL(str(build_kernels((name,))[name][0]))
+        _LIBS[name] = ctypes.CDLL(str(build_kernels()[name][0]))
     return _LIBS[name]
 
 

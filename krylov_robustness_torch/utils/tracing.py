@@ -30,10 +30,15 @@ already holds on the host: none adds a device synchronisation or a copy.
 - ``spmm.launches.K1`` … ``K4``: launches of each hand-written kernel;
 - ``krylov.steps_run``: candidate block steps the device ran (batch ×
   steps of every ``lanczos_continue``);
-- ``krylov.steps_used``: of those, the steps up to the round at which the
-  host-eigh scorer's lag test accepted each candidate (or its last round);
+- ``krylov.steps_kernel``: of the steps run, those that went through the
+  block step's kernel chain (``ops/block_mgs.py``), in the same units;
+- ``krylov.steps_used``: of the steps run, those up to the round at which
+  the host-eigh scorer's lag test accepted each candidate (or its last
+  round);
   the phase lane and the fused blocks keep their acceptance on the device
   and add nothing here;
+- ``krylov.launches.MGS``: the kernel launches of the block step's chain
+  (7 a step of its narrow chain, 9 of its wide one);
 - ``sweep.build_s``, ``sweep.builds``: host seconds in ``kr:sweep.build``
   on ``time.perf_counter``, and the sweeps built.
 """

@@ -9,7 +9,7 @@ import torch
 
 import jax.numpy as jnp
 
-from helpers import random_graph
+from helpers import breakdown_graph, random_graph, twin_graph
 from krylov_robustness_torch.interop import (
     coo_from_arrays,
     lanczos_state_from_arrays,
@@ -96,6 +96,41 @@ def test_breakdown_matches_jax():
     lucky = int(bt.lucky_step[0])
     assert lucky <= 3 and not bool(st.alive[0]) and bool(st.alive[1])
     assert np.allclose(bt.beta.numpy()[lucky:, 0], 0.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", ["random", "twins", "breakdown"])
+def test_steps_match_jax(case, dtype):
+    """Six steps of the plain block step (``ops/block_mgs.py``, which the
+    port runs on CPU tensors) against the JAX package's in the same type:
+    a random batch, twin nodes that deflate, and members that break down,
+    start dead or reach a zero block."""
+    A, U = {"random": lambda: (random_graph(150, 0.05, seed=42,
+                                            weighted=True),
+                               np.random.default_rng(0).standard_normal(
+                                   (4, 150, 2))),
+            "twins": twin_graph, "breakdown": breakdown_graph}[case]()
+    U = U.astype(dtype)
+    M, T = _pair(A)
+    if dtype == "float32":
+        M = M.astype(jnp.float32)
+        T = T.astype(torch.float32)
+    bj, _, sj = jl.lanczos_run(M, jnp.asarray(U), 6)
+    bt, _, st = tl.lanczos_run(T, torch.as_tensor(U), 6)
+    atol = ATOL if dtype == "float64" else 2e-5
+    for got, want in ((bt.h, bj.h), (bt.beta, bj.beta)):
+        np.testing.assert_allclose(got.double().numpy(),
+                                   np.asarray(want, np.float64), atol=atol)
+    np.testing.assert_array_equal(bt.lucky_step.numpy(),
+                                  np.asarray(bj.lucky_step))
+    np.testing.assert_array_equal(st.alive.numpy(), np.asarray(sj.alive))
+    if case == "breakdown":
+        # e_0's f32 residual may stay at rounding level, above the tolerance
+        assert st.alive.tolist()[1:] == [True, False, False]
+        assert dtype == "float32" or not bool(st.alive[0])
+    if case == "twins":
+        assert bool(st.alive.all())
+        assert not bt.beta[:, :2, 1].any()  # the twins' dependent column
 
 
 def test_resume_jax_state_in_torch():
