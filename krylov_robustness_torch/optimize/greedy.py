@@ -532,10 +532,13 @@ def greedy_krylov(
             Q = int(A.sum(axis=0).max())
         if mode == "break" and A.nnz < 2 * k:
             raise ValueError("edges to be removed exceed edges in the network")
-        if mode == "make":
-            top = find_top_missing_edges(A, centrality, Q + k, order)
-        else:
-            top = find_top_edges(A, centrality, Q + k, order)
+        t_cands = time.perf_counter()
+        with tracing.span("sweep.candidates", mode, Q + k):
+            if mode == "make":
+                top = find_top_missing_edges(A, centrality, Q + k, order)
+            else:
+                top = find_top_edges(A, centrality, Q + k, order)
+        tracing.count("sweep.candidates_s", time.perf_counter() - t_cands)
         sign = -1.0 if mode == "break" else +1.0
 
         extra = top if mode == "make" else None
@@ -548,6 +551,8 @@ def greedy_krylov(
         else:
             F = _single_device_operator(A, top, Q, mode, backend, dtype, dev)
     tracing.count("sweep.build_s", time.perf_counter() - t_build)
+    # entries the operator holds beyond A's: make mode's candidate slots
+    tracing.count("sweep.slots", F.operator.nnz - A.nnz)
     sweep = tracing.count("sweep.builds")  # the sweep's id in the process
 
     # Below the dense cutoff the per-step loop scores exactly; above the

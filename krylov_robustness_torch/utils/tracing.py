@@ -13,6 +13,9 @@ The spans, outermost first (the greedy path's layers):
 
 - ``kr:sweep.build``: a sweep from its start to its first step (top edges,
   operator choice and build), ``optimize/greedy.py::greedy_krylov``;
+- ``kr:sweep.candidates|mode|num``: inside it, the choice of the sweep's
+  ``num`` = Q + k candidates (``find_top_edges`` in break mode,
+  ``find_top_missing_edges`` in make mode);
 - ``kr:step|sweep|step``: one budget step, or one fused block, closed
   before the sweep's checkpoint is saved;
 - ``kr:scorer|batch``: one scoring call, ``trace_fun_update_edges``;
@@ -40,7 +43,11 @@ already holds on the host: none adds a device synchronisation or a copy.
 - ``krylov.launches.MGS``: the kernel launches of the block step's chain
   (7 a step of its narrow chain, 9 of its wide one);
 - ``sweep.build_s``, ``sweep.builds``: host seconds in ``kr:sweep.build``
-  on ``time.perf_counter``, and the sweeps built.
+  on ``time.perf_counter``, and the sweeps built;
+- ``sweep.candidates_s``: host seconds in ``kr:sweep.candidates``;
+- ``sweep.slots``: the entries a sweep's operator holds beyond the graph's,
+  make mode's explicit-zero candidate slots (2·(Q + k) a make sweep, both
+  triangles of each candidate; 0 a break sweep).
 """
 
 from __future__ import annotations

@@ -141,6 +141,40 @@ def test_spans_nest_as_the_layers_and_carry_the_shapes(graph, monkeypatch):
     assert len(steps) == len(products) > 0
 
 
+@pytest.mark.parametrize("mode", ["break", "make"])
+def test_candidate_range_and_sweep_counters(graph, monkeypatch, mode):
+    """kr:sweep.candidates carries the mode and the Q + k candidates asked
+    for and nests in kr:sweep.build; a sweep adds to sweep.candidates_s
+    once, within what it adds to sweep.build_s, and to sweep.slots the
+    entries its operator holds beyond A: on COO in make mode both triangles
+    of each of the Q + k candidates, in break mode none."""
+    A, c, tol = graph
+    calls = []
+    real = tracing.count
+
+    def recorded(name, n=1):
+        calls.append((name, n))
+        return real(name, n)
+
+    monkeypatch.setattr(tracing, "count", recorded)
+    tracing.enable()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        greedy_krylov(A, 2, Q, c, order="min", tol=tol, mode=mode,
+                      dtype=torch.float64, backend="coo", fused_steps=0,
+                      device="cpu")
+    by = {}
+    for r in ranges(prof):
+        by.setdefault(r[0].split("|")[0], []).append(r)
+    (cands,) = by["kr:sweep.candidates"]
+    assert cands[0] == f"kr:sweep.candidates|{mode}|{Q + 2}"
+    assert inside(cands, by["kr:sweep.build"])
+    grew = {name: [n for m, n in calls if m == name] for name in (
+        "sweep.candidates_s", "sweep.build_s", "sweep.slots")}
+    assert len(grew["sweep.candidates_s"]) == 1
+    assert 0 < grew["sweep.candidates_s"][0] <= grew["sweep.build_s"][0]
+    assert grew["sweep.slots"] == [2 * (Q + 2) if mode == "make" else 0]
+
+
 def test_sturm_span_carries_batch_and_order():
     G = torch.randn(3, 12, 12, dtype=torch.float64)
     G = G + G.transpose(-1, -2)
