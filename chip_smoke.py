@@ -40,6 +40,17 @@ Phases, each of which raises on failure (exit code 1):
    times of the chain and the einsum step beside the least time (four blocks
    at 3.35 TB/s); then ``krylov.steps_kernel`` equals ``krylov.steps_run``
    over a scoring call on each graph and a weighted-width call;
+3c. spectra (``ops/banded_sturm.py``, ``csrc/banded_sturm.cu``): the
+   Sturm kernel on 100-step f32 recurrences at the main path's shapes (road
+   break at Q = 250 and 50, hub break at b = 520, hub make's positive B) at
+   every round of the default schedule (M = 12 … 200), converged candidates
+   left out, members dead on entry and broken down, against host LAPACK
+   (eigenvalues within 1e-13·‖G‖, Δ within 1e-11 relative) and the plain
+   version on the card; identical reruns; a NaN poisons its member only;
+   the time a round beside its least time (the FP64 pipes' rate), the
+   plain version's and LAPACK's; then ``spectra.members_kernel`` equals 4 ×
+   the candidates of every round, one launch a round, ``members_host`` 0,
+   over a scoring call on each graph and in make;
 4. greedy path, road graph: ``greedy_krylov`` break/make on the per-step
    lane through K1 (f32) and K2 (f64), picks held against the COO backend;
 5. greedy path, hub graph: the fused lane with σ-shift, picks held against
@@ -103,7 +114,9 @@ Phases, each of which raises on failure (exit code 1):
 Each path (4-5, 6, 7, 8, 9, 10, 11) runs with every launch count set to 0
 just before it and read just after (``MGS``: the launches of the block
 step's kernel chain, which every path must take, and ``MGS steps`` the
-member-steps through it); the 2-rank halves of paths 10 and 11 run
+member-steps through it; ``Sturm``, ``Sturm members`` and ``host members``:
+the spectra kernel's launches and the matrices solved on the card and on the
+host, where the greedy and budget paths must solve none on the host); the 2-rank halves of paths 10 and 11 run
 in their own processes, which check and report their own counts. The line
 before the last is a JSON object with one entry per kernel (its count on the path that
 runs it, errors and times of phase 3); the last line is ``{"ok": true, "device": {...}}``. Without CUDA
@@ -134,13 +147,16 @@ SOURCES = {"K1": "krylov_robustness_torch/csrc/bsr_super.cu",
            "K2": "krylov_robustness_torch/csrc/bsr_super.cu",
            "K3": "krylov_robustness_torch/csrc/banded_ell.cu",
            "K4": "krylov_robustness_torch/csrc/bsr_flat.cu",
-           "MGS": "krylov_robustness_torch/csrc/block_mgs.cu"}
+           "MGS": "krylov_robustness_torch/csrc/block_mgs.cu",
+           "Sturm": "krylov_robustness_torch/csrc/banded_sturm.cu"}
 REPLACES = {
     "K1": "krylov_robustness_tpu/ops/pallas_bsr_super.py:97",
     "K2": "krylov_robustness_tpu/ops/pallas_bsr_super.py:82",
     "K3": "krylov_robustness_tpu/ops/pallas_spmm.py:51",
     "K4": "krylov_robustness_tpu/ops/pallas_bsr.py:49",
     "MGS": "none (XLA's einsums in krylov_robustness_tpu/krylov/lanczos.py)",
+    "Sturm": "none (host LAPACK in krylov_robustness_tpu/updates/"
+             "trace_update.py::_eigvals_banded_batch)",
 }
 # relative to max|A x|: the first two mirror tests/test_pallas_bsr_super.py
 GATES = {"bf16x2": 3e-5, "bf16x3": 3e-7, "f32": 1e-6, "f64": 1e-12}
@@ -845,6 +861,293 @@ def phase_block_mgs(dev, graphs) -> dict:
     return {"max_abs_err": main["max_abs_err"], "ms": main["kernel_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["least_ms"],
             "bound_by": "bytes", "library_ms": None}
+
+
+# the main path's spectra shapes: (graph, candidates, sign of B) — road
+# break at Q = 250 and 50, hub break at b = 520, hub make's positive B
+STURM_CASES = (("road", 250, -1.0), ("road", 50, -1.0), ("hub", 260, -1.0),
+               ("hub", 250, 1.0))
+STURM_STEPS = 100  # the schedule's sum: M up to 200 at bs = 2
+STURM_EIG_GATE = 1e-13  # over ‖G‖ (its largest |eigenvalue|)
+STURM_DELTA_GATE = 1e-11  # relative, Δ = Σ exp(d1)(−expm1(d2 − d1))
+# the FP64 pipes' instruction rate: 132 SMs × 64 a clock at 1.98 GHz (the
+# 33.5 TFLOP/s data-sheet peak counts an FMA as two)
+F64_RATE = 132 * 64 * 1.98e9
+
+
+def sturm_ops(n: int, bs: int = 2) -> int:
+    """f64 operations (an FMA, a division or a square root one each) that
+    one n-column matrix needs on the kernel's path: each rotation of its
+    band reduction (a² + b², the square root, the reciprocal, c and s; 4 a
+    pair of entries left of and below the 2 × 2 block, 11 for the block),
+    then ITERS sweeps of n steps for each of its n lanes (d − x, the
+    division, the subtraction, the pivot's test, the count's test)."""
+    from krylov_robustness_torch.ops.banded_sturm import ITERS, _rotations
+
+    rot = sum(6 + 4 * (min(p - 1, k) + min(n - 2 - p, k)) + 11
+              for k, p, _ in _rotations(n, 2 * bs - 1))
+    return rot + n * ITERS * n * 5
+
+
+def sturm_least_ms(n_act: int, m: int, m_lag: int, bs: int = 2) -> float:
+    """The least time of a round at the FP64 pipes' rate: the four matrices
+    (two of m·bs columns, two of m_lag·bs) of each candidate."""
+    ops = 2 * sturm_ops(m * bs, bs) + 2 * sturm_ops(m_lag * bs, bs)
+    return n_act * ops / F64_RATE * 1e3
+
+
+def sturm_edges(A, count: int, sign: float):
+    """The main path's ``count`` candidates of A: the top existing edges for
+    a break (sign −1), the top missing ones for a make (+1), by eigenvector
+    centrality in the order ``min``, as the cells choose them (the scorer's
+    Δ of an edge far from the leading eigenvector sits below its own
+    rounding, exp(λmax)·eps·‖G‖)."""
+    from krylov_robustness_torch.graphs.centrality import (
+        compute_centrality_host,
+    )
+    from krylov_robustness_torch.graphs.top_edges import (
+        find_top_edges,
+        find_top_missing_edges,
+    )
+
+    c = compute_centrality_host(A, "eig")
+    find = find_top_edges if sign < 0 else find_top_missing_edges
+    return find(A, c, count, "min")
+
+
+def sturm_lapack(h, beta, Cm, act, m: int, m_lag: int, pool):
+    """(tG_lag, G_lag, tG, G) by host LAPACK on the scorer's bands, as the
+    scorer computes them for CPU blocks."""
+    from krylov_robustness_torch.updates import trace_update as tu
+
+    band_t, band_g = tu._band_from_blocks(
+        tu._to_host(h)[:, act], tu._to_host(beta)[:, act],
+        Cm.cpu().numpy()[act], m, h.shape[-1])
+    ML = m_lag * h.shape[-1]
+    return (tu._eigvals_lapack(band_t[:, :, :ML], pool),
+            tu._eigvals_lapack(band_g[:, :, :ML], pool),
+            tu._eigvals_lapack(band_t, pool), tu._eigvals_lapack(band_g, pool))
+
+
+def sturm_split(eig, M: int, ML: int):
+    """The kernel's lanes [tG(M) | G(M) | tG(ML) | G(ML)] as the scorer's
+    entry returns them: (tG_lag, G_lag, tG, G), each sorted, on the host."""
+    eig = eig.cpu().numpy()
+    return tuple(np.sort(p, axis=1) for p in (
+        eig[:, 2 * M:2 * M + ML], eig[:, 2 * M + ML:], eig[:, :M],
+        eig[:, M:2 * M]))
+
+
+def sturm_hold(label: str, got, want, dense=None) -> tuple[float, float]:
+    """Eigenvalues within STURM_EIG_GATE·‖G‖ of ``want``'s, matrix by
+    matrix; Δ at the lag and at the round within STURM_DELTA_GATE relative,
+    or, where Δ is too ill-conditioned for that (on the hub: an edge that
+    moves the top eigenvalue by 1e-4 of it), within what the eigenvalue gate
+    admits, STURM_EIG_GATE·‖G‖·Σ exp(λ) over both spectra. ``dense`` (the
+    same four spectra by another solver, dense ``eigvalsh``) prints how far
+    LAPACK's own solvers part on Δ. Returns the largest eigenvalue error
+    over ‖G‖ and the largest relative Δ error."""
+    from krylov_robustness_torch.updates.trace_update import (
+        _trace_fun_difference_np,
+    )
+
+    worst, norms = 0.0, []
+    for g, w in zip(got, want):
+        check(g.shape == w.shape and np.isfinite(g).all(),
+              f"spectra {label}: {g.shape} against {w.shape}, or not finite")
+        norm = np.abs(w).max(axis=1, keepdims=True) if w.size else \
+            np.zeros((len(w), 1))
+        norms.append(norm)
+        if not w.size:
+            continue
+        err = np.abs(g - w)
+        rel = float((err / np.maximum(norm, 1e-300)).max())
+        check(bool(np.all(err <= STURM_EIG_GATE * norm)),
+              f"spectra {label}: eigenvalue error {rel:.3e} over ‖G‖")
+        worst = max(worst, rel)
+    dworst, tight, total, apart = 0.0, 0, 0, 0.0
+    for a, b in ((0, 1), (2, 3)):
+        if not want[a].size:
+            continue
+        x = _trace_fun_difference_np(got[a], got[b], "exp")
+        y = _trace_fun_difference_np(want[a], want[b], "exp")
+        err = np.abs(x - y)
+        rel = err / np.maximum(np.abs(y), 1e-300)
+        norm = np.maximum(norms[a], norms[b])[:, 0]
+        admits = STURM_EIG_GATE * norm * (np.exp(want[a]).sum(axis=1) +
+                                          np.exp(want[b]).sum(axis=1))
+        past = err > np.maximum(STURM_DELTA_GATE * np.abs(y), admits)
+        check(not past.any(), f"spectra {label}: Δ error "
+              f"{float(rel[past].max()) if past.any() else 0.0:.3e} "
+              f"relative, past what the eigenvalue gate admits")
+        dworst = max(dworst, float(rel.max()))
+        tight += int((err <= STURM_DELTA_GATE * np.abs(y)).sum())
+        total += len(y)
+        if dense is not None:
+            z = _trace_fun_difference_np(dense[a], dense[b], "exp")
+            apart = max(apart, float(np.max(np.abs(z - y) /
+                                            np.maximum(np.abs(y), 1e-300))))
+    if dense is not None:
+        print(f"[spectra] {label}: Δ within {STURM_DELTA_GATE:.0e} relative "
+              f"of LAPACK's for {tight} of {total}, the rest within the "
+              f"eigenvalue gate's reach; worst {dworst:.2e}, where dense "
+              f"eigvalsh parts from LAPACK by {apart:.2e}")
+    return worst, dworst
+
+
+def phase_spectra(dev, graphs) -> dict:
+    """The spectra kernel (``ops/banded_sturm.py``, ``csrc/banded_sturm.cu``)
+    on the card, at the main path's shapes (:data:`STURM_CASES`), on a
+    100-step f32 recurrence of each, at every round boundary of the default
+    schedule (M = 12 … 200), converged candidates left out from the second
+    round on, members dead on entry and members broken down (lucky) at
+    step 5: held against host LAPACK (every round) and the plain version on
+    the card (three rounds of the first case, the speculated last round of
+    the others), two launches giving identical bits, a NaN that poisons its
+    member's matrices only; the time a round beside its least time (the
+    FP64 pipes' rate), the plain version's and LAPACK's; then, over a
+    scoring call on each graph, ``spectra.members_kernel`` equals 4 × the
+    candidates of every round, one launch a round, ``members_host`` 0."""
+    import concurrent.futures
+
+    from krylov_robustness_torch.krylov.lanczos import (
+        lanczos_continue,
+        lanczos_start,
+    )
+    from krylov_robustness_torch.ops import banded_sturm as bst
+    from krylov_robustness_torch.ops.sparse import CooMatrix
+    from krylov_robustness_torch.updates import trace_update as tu
+    from krylov_robustness_torch.utils import tracing
+
+    rounds = np.cumsum(tu.DEFAULT_SCHEDULE)
+    lag = 2
+    stats = {}
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=8)
+    for case, (name, batch, sign) in enumerate(STURM_CASES):
+        A = graphs[name]
+        edges = sturm_edges(A, batch, sign)
+        op = CooMatrix.from_scipy(A, dtype=torch.float32, device=dev)
+        U0 = tu.edge_start_blocks(A.shape[0], edges, torch.float32, dev)
+        B = tu.edge_B(edges, sign, 1.0, torch.float32, dev)
+        state, R0 = lanczos_start(op, U0)
+        blocks, _ = lanczos_continue(op, state, STURM_STEPS)
+        h, beta = blocks.h.clone(), blocks.beta.clone()
+        R0n = tu._to_host(R0)
+        Cm = np.einsum("bkl,blm,bpm->bkp", R0n, tu._to_host(B), R0n)
+        # member 2 dead on entry (zero blocks, zero R0); members 1 and 4
+        # broken down at step 5 (zero blocks from there on)
+        h[:, 2], beta[:, 2], Cm[2] = 0.0, 0.0, 0.0
+        beta[4:, [1, 4]] = 0.0
+        h[5:, [1, 4]] = 0.0
+        Cm = torch.from_numpy(Cm).to(dev)
+        label0 = f"{name} batch={batch} sign={sign:+.0f}"
+        for r, m in enumerate(int(x) for x in rounds):
+            keep = np.arange(batch) if r == 0 else \
+                np.nonzero(np.arange(batch) % (r + 1) == 0)[0]
+            act = torch.as_tensor(keep.astype(np.int32), device=dev)
+            M, ML = 2 * m, 2 * (m - lag)
+            label = f"{label0} m={m} ({len(keep)} active)"
+            out = bst.spectra_cuda(h, beta, Cm, act, m, m - lag)
+            again = bst.spectra_cuda(h, beta, Cm, act, m, m - lag)
+            torch.cuda.synchronize()
+            check(torch.equal(out, again), f"spectra {label}: two launches "
+                  f"differ")
+            got = sturm_split(out, M, ML)
+            tG, G = bst.projections(h.cpu(), beta.cpu(), Cm.cpu(),
+                                    act.cpu(), m)
+            dense = [torch.linalg.eigvalsh(X).numpy() for X in (
+                tG[:, :ML, :ML], G[:, :ML, :ML], tG, G)]
+            err, derr = sturm_hold(label, got, sturm_lapack(
+                h, beta, Cm, keep, m, m - lag, pool), dense)
+            line = (f"[spectra] {label}: identical reruns; against LAPACK "
+                    f"{err:.2e} of ‖G‖, Δ {derr:.2e}")
+            if (case == 0 and m in (6, 20, 100)) or (case and m == 20):
+                sub = act[:8]
+                plain = bst.spectra_plain(h, beta, Cm, sub, m, m - lag)
+                perr, _ = sturm_hold(f"{label} plain",
+                                     sturm_split(out[:8], M, ML),
+                                     sturm_split(plain, M, ML))
+                line += f"; against the plain version {perr:.2e}"
+                stats["plain_err"] = max(stats.get("plain_err", 0.0), perr)
+            if case == 0:
+                ms = cuda_ms(lambda: bst.spectra_cuda(h, beta, Cm, act, m,
+                                                      m - lag), reps=11)
+                least = sturm_least_ms(len(keep), m, m - lag)
+                line += (f"; {ms:.4f} ms a round, least {least:.4f} ms "
+                         f"({100 * least / ms:.1f}%)")
+            print(line)
+        if case == 0:  # every candidate at the speculated rounds, timed
+            every = torch.arange(batch, dtype=torch.int32, device=dev)
+            for m in (6, 20):
+                ms = cuda_ms(lambda: bst.spectra_cuda(h, beta, Cm, every, m,
+                                                      m - lag), reps=21)
+                least = sturm_least_ms(batch, m, m - lag)
+                t0 = time.perf_counter()
+                sturm_lapack(h, beta, Cm, np.arange(batch), m, m - lag, pool)
+                lapack_ms = (time.perf_counter() - t0) * 1e3
+                plain_ms = cuda_ms(lambda: bst.spectra_plain(
+                    h, beta, Cm, every, m, m - lag), reps=1, warmup=1)
+                print(f"[spectra] {label0} m={m}, all {batch}: kernel "
+                      f"{ms:.4f} ms, least {least:.4f} ms "
+                      f"({100 * least / ms:.1f}%), plain version "
+                      f"{plain_ms:.1f} ms, host LAPACK {lapack_ms:.1f} ms "
+                      f"(8 threads)")
+                stats[f"m={m}"] = {"ms": ms, "least_ms": least,
+                                   "plain_ms": plain_ms,
+                                   "lapack_ms": lapack_ms}
+            for m in (6, 20, STURM_STEPS):
+                one = cuda_ms(lambda: bst.spectra_cuda(h, beta, Cm, every[:1],
+                                                       m, m - lag), reps=5)
+                print(f"[spectra] one candidate at m={m} (M = {2 * m}, "
+                      f"{bst.plan(4 * (m - 1) * 2)[0]} CTAs): {one:.4f} ms, "
+                      f"the chains alone")
+            bad = h.clone()
+            bad[10, 0, 3, 1] = float("nan")
+            for m in (6, 20):
+                act = torch.arange(batch, dtype=torch.int32, device=dev)
+                clean = bst.spectra_cuda(h, beta, Cm, act, m, m - lag)
+                poisoned = bst.spectra_cuda(bad, beta, Cm, act, m, m - lag)
+                if m == 6:
+                    check(torch.equal(clean, poisoned),
+                          "spectra: a NaN past the round moved the spectra")
+                else:
+                    check(bool(poisoned[0].isnan().all()) and
+                          torch.equal(clean[1:], poisoned[1:]),
+                          "spectra: a NaN did not poison its member only")
+            print("[spectra] a NaN at step 10 of member 0: NaN in its "
+                  "matrices at m=20, nothing moved at m=6 or elsewhere")
+    pool.shutdown()
+
+    entry = tu._eigvals_banded_batch
+    for name, sign in (("road", -1.0), ("hub", -1.0), ("hub", 1.0)):
+        A = graphs[name]
+        edges = sturm_edges(A, 250, sign)
+        op = CooMatrix.from_scipy(A, dtype=torch.float32, device=dev)
+        seen = []
+
+        def record(h, beta, Cm, act, *rest):
+            seen.append(len(act))
+            return entry(h, beta, Cm, act, *rest)
+
+        keys = ("spectra.members_kernel", "spectra.members_host",
+                "spectra.launches.sturm")
+        before = tracing.counters()
+        with mock.patch.object(tu, "_eigvals_banded_batch", record):
+            tu.trace_fun_update_edges(op, edges, sign=sign, tol=1e-3)
+        after = tracing.counters()
+        grew = {k: after.get(k, 0) - before.get(k, 0) for k in keys}
+        print(f"[spectra] scoring call on {name}, 250 edges, sign "
+              f"{sign:+.0f}: {grew}, candidates a round {seen}")
+        check(grew == {"spectra.members_kernel": 4 * sum(seen),
+                       "spectra.members_host": 0,
+                       "spectra.launches.sturm": len(seen)} and seen,
+              f"spectra: the scoring call on {name} did not take the "
+              f"kernel every round: {grew}")
+    main = stats["m=20"]
+    return {"max_abs_err": stats["plain_err"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["least_ms"],
+            "bound_by": "f64 operations", "library_ms": None,
+            "lapack_ms": main["lapack_ms"]}
 
 
 class MainPathCapture:
@@ -2000,9 +2303,12 @@ def phase_surface(dev, graphs, root: Path) -> None:
 
 def launch_counts() -> dict:
     """Launches of each kernel in this process so far (the program's
-    ``spmm.launches.K1`` … ``K4`` and ``krylov.launches.MGS`` counters), and
-    the member-steps that went through the block step's kernel chain
-    (``krylov.steps_kernel``) as ``MGS steps``."""
+    ``spmm.launches.K1`` … ``K4``, ``krylov.launches.MGS`` and
+    ``spectra.launches.sturm`` counters), the member-steps that went through
+    the block step's kernel chain (``krylov.steps_kernel``) as ``MGS
+    steps``, and the candidate matrices whose spectra came from the Sturm
+    kernel and from host LAPACK (``spectra.members_kernel`` and
+    ``spectra.members_host``) as ``Sturm members`` and ``host members``."""
     from krylov_robustness_torch.utils import tracing
 
     counts = tracing.counters()
@@ -2010,6 +2316,9 @@ def launch_counts() -> dict:
            for k in ("K1", "K2", "K3", "K4")}
     out["MGS"] = counts.get("krylov.launches.MGS", 0)
     out["MGS steps"] = counts.get("krylov.steps_kernel", 0)
+    out["Sturm"] = counts.get("spectra.launches.sturm", 0)
+    out["Sturm members"] = counts.get("spectra.members_kernel", 0)
+    out["host members"] = counts.get("spectra.members_host", 0)
     return out
 
 
@@ -2044,6 +2353,7 @@ def run(dev, root: Path) -> int:
     stats.update(phase_road_kernels(dev, graphs["road"]))
     phase_flat_fallback(dev, graphs["hub"])
     stats[("road", "MGS f32", 500)] = phase_block_mgs(dev, graphs)
+    stats[("road", "Sturm f64", 250)] = phase_spectra(dev, graphs)
     with MainPathCapture() as capture:
         greedy = drive("greedy", greedy_path, dev, graphs)
         budget = drive("budget", phase_budget, dev, graphs["road"], root)
@@ -2067,6 +2377,10 @@ def run(dev, root: Path) -> int:
                          ("sharded", sharded)):
         check(counts["MGS"] > 0,
               f"{path} path: no step went through block_mgs: {counts}")
+    for path, counts in (("greedy", greedy), ("budget", budget)):
+        check(counts["Sturm"] > 0 and counts["host members"] == 0,
+              f"{path} path: a round's spectra did not take the Sturm "
+              f"kernel: {counts}")
     check(budget["K3"] > 0, f"budget path: K3 was not launched: {budget}")
     check(tables["K1"] > 0, f"tables path: K1 was not launched: {tables}")
     check(benched["K4"] > 0 and benched["K1"] > 0,
@@ -2085,11 +2399,15 @@ def run(dev, root: Path) -> int:
                ("K3", "K3 ell_spmm (f32)", budget, ("road", "K3 f32", 100)),
                ("K4", "K4 bsr_spmm (f32)", benched, ("road", "K4 f32", 512)),
                ("MGS", "block_mgs step chain (f32)", greedy,
-                ("road", "MGS f32", 500)))
+                ("road", "MGS f32", 500)),
+               ("Sturm", "banded_sturm spectra (f64)", greedy,
+                ("road", "Sturm f64", 250)))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[k],
          "replaces": REPLACES[k], "launches": counts[k],
          **({"member_steps": counts["MGS steps"]} if k == "MGS" else {}),
+         **({"members": counts["Sturm members"],
+             "lapack_ms": stats[key]["lapack_ms"]} if k == "Sturm" else {}),
          **{e: stats[key][e] for e in ENTRY_KEYS}}
         for k, name, counts, key in entries]}))
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,8 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"bsr_super": _CSRC / "bsr_super.cu",
            "banded_ell": _CSRC / "banded_ell.cu",
            "bsr_flat": _CSRC / "bsr_flat.cu",
-           "block_mgs": _CSRC / "block_mgs.cu"}
+           "block_mgs": _CSRC / "block_mgs.cu",
+           "banded_sturm": _CSRC / "banded_sturm.cu"}
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

@@ -4,10 +4,12 @@
 The reference calls ``trace_fun_update`` once per candidate edge per greedy
 step (``krylov_miobi.m:99``). Here every candidate's block recurrence
 advances together (one SpMM of width candidates·2 per step), the device
-runs the recurrence, and the host computes the projected spectra (LAPACK
-banded eigensolver, threaded) and the lag-2 stopping rule
-(``trace_fun_update.m:57-59,103-118``) at the round boundaries of a
-checkpoint schedule. Small graphs (n ≤ 130) take the exact dense path
+runs the recurrence, and at the round boundaries of a checkpoint schedule
+the projected spectra are computed — on the card by one kernel launch a
+round (``ops/banded_sturm.py``) for CUDA blocks of at most four columns,
+else on the host by LAPACK's banded eigensolver, threaded — and the host
+applies the lag-2 stopping rule (``trace_fun_update.m:57-59,103-118``).
+Small graphs (n ≤ 130) take the exact dense path
 (``trace_fun_update.m:37-51``) where the operator has ``todense``, and
 otherwise the phase lane (``host_eigh=False``): rounds grouped into phases,
 dense spectra and the lag test on the device, one host check per phase.
@@ -39,6 +41,7 @@ from ..krylov.lanczos import (
     lanczos_continue,
     lanczos_start,
 )
+from ..ops import banded_sturm
 from ..utils import tracing
 
 DEFAULT_SCHEDULE = (6, 6, 8, 12, 20, 28, 20)  # cumulative 100 = reference max it
@@ -83,7 +86,18 @@ class TraceUpdateResult:
     converged: torch.Tensor  # (batch,) bool
 
 
-def _eigvals_banded_batch(band: np.ndarray, pool) -> np.ndarray:
+def _spectra_on_card(h: torch.Tensor) -> bool:
+    """The spectra layer's path rule, on the recurrence's observed device
+    and width: CUDA blocks of at most ``banded_sturm.MAX_BS`` columns (every
+    greedy scoring call's bs = 2, batch up to a few hundred) take the card's
+    spectra kernel; CPU blocks, and CUDA blocks wider than that (a joint
+    edit's rescoring, the weighted objective: one large band a call, where
+    LAPACK's cost a call is small beside the band's and the kernel's chains
+    grow with the bandwidth), take host LAPACK."""
+    return h.device.type == "cuda" and h.shape[-1] <= banded_sturm.MAX_BS
+
+
+def _eigvals_lapack(band: np.ndarray, pool) -> np.ndarray:
     """Eigenvalues of a batch of symmetric matrices in lower-banded storage
     (batch, nband, M) via LAPACK dsbev, threaded across the batch (scipy
     releases the GIL inside the Fortran call)."""
@@ -100,6 +114,36 @@ def _eigvals_banded_batch(band: np.ndarray, pool) -> np.ndarray:
         for fut in [pool.submit(one, c) for c in range(batch)]:
             fut.result()
     return out
+
+
+def _eigvals_banded_batch(h: torch.Tensor, beta: torch.Tensor,
+                          Cm: torch.Tensor, act: np.ndarray, m: int,
+                          m_lag: int, pool):
+    """The spectra layer's one entry: the ascending eigenvalues of a round's
+    four projections of the candidates ``act`` after m steps — tG and G at
+    m_lag·bs columns and at m·bs — as f64 arrays (tG_lag, G_lag, tG, G).
+    Where :func:`_spectra_on_card` holds, ``h``/``beta`` are the recurrence
+    as it lies on the card and ``Cm`` is there too: one kernel launch and
+    the wait for its results. Otherwise they are f64 on the host: the bands
+    (``_band_from_blocks``) and four threaded LAPACK calls on ``pool``."""
+    bs = h.shape[-1]
+    M, ML = m * bs, m_lag * bs
+    if _spectra_on_card(h):
+        with tracing.span("spectra.kernel", len(act), M):
+            act_d = torch.as_tensor(act.astype(np.int32), device=h.device)
+            eig = banded_sturm.spectra(h, beta, Cm, act_d, m, m_lag)
+            eig = eig.cpu().numpy()
+        return (np.sort(eig[:, 2 * M:2 * M + ML], axis=1),
+                np.sort(eig[:, 2 * M + ML:], axis=1),
+                np.sort(eig[:, :M], axis=1), np.sort(eig[:, M:2 * M], axis=1))
+    tracing.count("spectra.members_host", 4 * len(act))
+    with tracing.span("spectra.band", len(act), M):
+        band_t, band_g = _band_from_blocks(h.numpy()[:, act],
+                                           beta.numpy()[:, act],
+                                           Cm.numpy()[act], m, bs)
+    return (_eigvals_lapack(band_t[:, :, :ML], pool),
+            _eigvals_lapack(band_g[:, :, :ML], pool),
+            _eigvals_lapack(band_t, pool), _eigvals_lapack(band_g, pool))
 
 
 _NP_FUNS = {"exp": np.exp, "sinh": np.sinh, "cosh": np.cosh,
@@ -152,6 +196,12 @@ def _band_from_blocks(h_np, beta_np, Cm_np, m: int, bs: int):
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.detach().to(torch.float64).cpu().numpy()
+
+
+def _for_spectra(t: torch.Tensor, on_card: bool) -> torch.Tensor:
+    """A recurrence block where the spectra read it: as it lies on the
+    card, or in f64 on the host."""
+    return t if on_card else t.detach().to(torch.float64).cpu()
 
 
 def _delta_trace_at(h, beta, Cm, m_total: int, bs: int, fun_name: str,
@@ -235,12 +285,15 @@ def _trace_update_phases(A, U0, B, fun, tol, schedule, lag, phases,
 
 def _trace_update_host_eigh(A, U0, B, fun, tol, schedule, lag,
                             shift: float = 0.0, spec_rounds: int | None = None):
-    """Device recurrence + host spectra. The device speculates the first
-    ``spec_rounds`` schedule rounds in one go; if stragglers outlive them,
-    the carried end state is extended by exactly each later round's missing
-    steps (the forward blocks do not depend on convergence, so the result is
-    bit-identical to a longer speculation). The host computes banded spectra
-    and the lag-d bookkeeping per round boundary, for stragglers only."""
+    """Device recurrence, round-boundary spectra, host bookkeeping. The
+    device speculates the first ``spec_rounds`` schedule rounds in one go;
+    if stragglers outlive them, the carried end state is extended by exactly
+    each later round's missing steps (the forward blocks do not depend on
+    convergence, so the result is bit-identical to a longer speculation).
+    At each round boundary the banded spectra of the stragglers only come
+    from :func:`_eigvals_banded_batch` (on the card where
+    :func:`_spectra_on_card` holds, else on the host), and the host runs the
+    lag-d bookkeeping."""
     batch = U0.shape[0]
     bs = U0.shape[-1]
     dtype = U0.dtype
@@ -249,12 +302,15 @@ def _trace_update_host_eigh(A, U0, B, fun, tol, schedule, lag,
 
     state0, R0 = lanczos_start(A, U0)
     blocks, state_end = lanczos_continue(A, state0, spec)
-    h_np, beta_np = _to_host(blocks.h), _to_host(blocks.beta)
+    on_card = _spectra_on_card(blocks.h)
+    h, beta = _for_spectra(blocks.h, on_card), _for_spectra(blocks.beta,
+                                                             on_card)
     lucky = blocks.lucky_step.cpu().numpy()
     alive0 = state0.alive.cpu().numpy()
     R0_np = _to_host(R0)
     have = spec
-    Cm = np.einsum("bkl,blm,bpm->bkp", R0_np, _to_host(B), R0_np)
+    Cm = torch.from_numpy(np.einsum("bkl,blm,bpm->bkp", R0_np, _to_host(B),
+                                    R0_np)).to(h.device)
 
     delta = np.zeros((batch,), np.float64)
     iters = np.zeros((batch,), np.int32)
@@ -266,36 +322,31 @@ def _trace_update_host_eigh(A, U0, B, fun, tol, schedule, lag,
     best_err = np.full((batch,), np.inf)
     eps_m = torch.finfo(dtype).eps
     m_done = 0
+    # the pool starts its threads at the first LAPACK call, so the card's
+    # path starts none
     with concurrent.futures.ThreadPoolExecutor(
             max_workers=min(8, os.cpu_count() or 2)) as pool:
         for steps in schedule:
             m_done += int(steps)
-            act = np.nonzero(~converged)[0]  # host spectra only for stragglers
+            act = np.nonzero(~converged)[0]  # spectra only for stragglers
             if len(act) == 0:
                 break
             if m_done > have:
                 blocks2, state_end = lanczos_continue(A, state_end,
                                                       m_done - have)
-                h_np = np.concatenate([h_np, _to_host(blocks2.h)], axis=0)
-                beta_np = np.concatenate([beta_np, _to_host(blocks2.beta)],
-                                         axis=0)
+                h = torch.cat([h, _for_spectra(blocks2.h, on_card)])
+                beta = torch.cat([beta, _for_spectra(blocks2.beta, on_card)])
                 # lucky_step is segment-relative: members that survived the
                 # first segment carry the continuation's offset value
                 lucky = np.where(lucky < have, lucky,
                                  have + blocks2.lucky_step.cpu().numpy())
                 have = m_done
-            with tracing.span("spectra.band", len(act), m_done * bs):
-                band_t, band_g = _band_from_blocks(
-                    h_np[:, act], beta_np[:, act], Cm[act], m_done, bs)
-            M_lag = (m_done - lag) * bs
-            x_lag = _trace_fun_difference_np(
-                _eigvals_banded_batch(band_t[:, :, :M_lag], pool),
-                _eigvals_banded_batch(band_g[:, :, :M_lag], pool),
-                fun.name, shift=shift)
-            x_now = _trace_fun_difference_np(
-                _eigvals_banded_batch(band_t, pool),
-                _eigvals_banded_batch(band_g, pool),
-                fun.name, shift=shift)
+            t_lag, g_lag, t_now, g_now = _eigvals_banded_batch(
+                h, beta, Cm, act, m_done, m_done - lag, pool)
+            x_lag = _trace_fun_difference_np(t_lag, g_lag, fun.name,
+                                             shift=shift)
+            x_now = _trace_fun_difference_np(t_now, g_now, fun.name,
+                                             shift=shift)
             err = np.abs(x_now - x_lag)
             dead = (~alive0 | (lucky < m_done))[act]
             # dtype-aware floor: an f32 recurrence cannot resolve below

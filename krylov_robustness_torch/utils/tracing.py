@@ -21,9 +21,13 @@ The spans, outermost first (the greedy path's layers):
 - ``kr:scorer|batch``: one scoring call, ``trace_fun_update_edges``;
 - ``kr:krylov|n|batch|bs|value size``: one block Lanczos step;
 - ``kr:spmm|n|nnz|b|value size|x size``: one operator product;
-- ``kr:spectra.band|batch|M``, ``kr:spectra.eig|batch|M``,
-  ``kr:spectra.sturm|batch|M``: the host band assembly, the host banded
-  eigensolver and the f32 Sturm bisection.
+- ``kr:spectra.kernel|batch|M``: a round's spectra on the card, the
+  Sturm kernel's launch and the wait for its results
+  (``ops/banded_sturm.py``); ``kr:spectra.band|batch|M``,
+  ``kr:spectra.eig|batch|M``: the host band assembly and the host banded
+  eigensolver, where the scorer's blocks are on the CPU or wider than four
+  columns; ``kr:spectra.sturm|batch|M``: the fused lane's f32 Sturm
+  bisection.
 
 Counters are plain Python numbers in one dict, always on (a count is a dict
 update, unlocked: the port never counts from a worker thread);
@@ -42,6 +46,11 @@ already holds on the host: none adds a device synchronisation or a copy.
   and add nothing here;
 - ``krylov.launches.MGS``: the kernel launches of the block step's chain
   (7 a step of its narrow chain, 9 of its wide one);
+- ``spectra.members_kernel``, ``spectra.members_host``: the candidate
+  matrices whose spectra the host-eigh scorer took from the Sturm kernel
+  and from host LAPACK (four a candidate a round: tG and G, at the round
+  and at its lag);
+- ``spectra.launches.sturm``: the Sturm kernel's launches (one a round);
 - ``sweep.build_s``, ``sweep.builds``: host seconds in ``kr:sweep.build``
   on ``time.perf_counter``, and the sweeps built;
 - ``sweep.candidates_s``: host seconds in ``kr:sweep.candidates``;

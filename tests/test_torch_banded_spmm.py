@@ -266,7 +266,9 @@ def test_one_build_per_source_all_started_together(monkeypatch, tmp_path):
     built = cuda_build.build_kernels()
     assert set(built) == set(cuda_build.SOURCES)
     nsrc = len(cuda_build.SOURCES)
-    assert nsrc == 4  # K1/K2, K3, K4 and the block step (block_mgs)
+    # K1/K2, K3, K4, the block step (block_mgs) and the spectra
+    # (banded_sturm)
+    assert nsrc == 5
     assert [e for e, _ in events] == ["start"] * nsrc + ["wait"] * nsrc
     assert all(p.exists() and p.parent == tmp_path for p, _ in
                built.values())
