@@ -38,18 +38,46 @@ from ..utils.guards import check_finite
 BSR_STORAGE_CAP = 768 * 1024 * 1024
 
 
-def _guard_scores(scores: np.ndarray, step: int, dataset: str = ""):
-    """A NaN/Inf score would silently win or lose the argmin: warn with the
-    offending count (the reference's analog is its non-convergence warning,
-    ``trace_fun_update.m:128-130``)."""
-    report = check_finite(scores, name=f"greedy scores step {step} {dataset}")
-    if not report.finite:
-        bad = int(np.sum(~np.isfinite(scores)))
-        warnings.warn(
-            f"{report.name}: {bad}/{scores.size} candidate scores are "
-            f"non-finite (max |x| = {report.max_abs:.3e}); they are "
-            "excluded from the argmin", RuntimeWarning)
-    return report.finite
+@dataclasses.dataclass(frozen=True)
+class _ModeRule:
+    """What a sweep's mode decides: 'break' removes the edge of least
+    Δtrace, 'make' adds the edge of greatest. ``sign`` is the update's
+    sign, ``commit`` the value a committed edge's slots take, ``worst`` the
+    score that never wins."""
+
+    mode: str
+    sign: float
+    commit: float
+    worst: float
+
+    @classmethod
+    def of(cls, mode: str, rescale: float = 1.0) -> "_ModeRule":
+        if mode not in ("break", "make"):
+            raise ValueError(f"mode must be 'break' or 'make', not {mode!r}")
+        if mode == "break":
+            return cls(mode, -1.0, 0.0, np.inf)
+        return cls(mode, +1.0, 1.0 / float(rescale), -np.inf)
+
+    @property
+    def adds(self) -> bool:
+        return self.sign > 0
+
+    def pick(self, scores: np.ndarray, step: int, dataset: str = "") -> int:
+        """The greedy step's pick over a window's scores (written in
+        place): a NaN/Inf score would silently win or lose, so non-finite
+        ones score worst, with a warning of their count (the reference's
+        analog is its non-convergence warning,
+        ``trace_fun_update.m:128-130``)."""
+        report = check_finite(scores,
+                              name=f"greedy scores step {step} {dataset}")
+        if not report.finite:
+            bad = ~np.isfinite(scores)
+            warnings.warn(
+                f"{report.name}: {int(bad.sum())}/{scores.size} candidate "
+                f"scores are non-finite (max |x| = {report.max_abs:.3e}); "
+                "they are excluded from the argmin", RuntimeWarning)
+            scores[bad] = self.worst
+        return int(np.argmax(scores) if self.adds else np.argmin(scores))
 
 
 @dataclasses.dataclass
@@ -69,32 +97,40 @@ def _np(t) -> np.ndarray:
         else np.asarray(t)
 
 
-def _with_slots(A: sp.csr_matrix, extra_edges) -> sp.csr_matrix:
-    """A with explicit (1e-300) entries at both triangles of ``extra_edges``,
-    the pre-allocated slots of make-mode additions."""
-    if extra_edges is None or not len(extra_edges):
-        return A
-    e = np.asarray(extra_edges)
-    n = A.shape[0]
-    pattern = sp.coo_matrix(
-        (np.full(2 * len(e), 1e-300),
-         (np.concatenate([e[:, 0], e[:, 1]]),
-          np.concatenate([e[:, 1], e[:, 0]]))), shape=(n, n))
-    return (A + pattern.tocsr()).tocsr()
-
-
-def _with_zero_slots(A: sp.csr_matrix, extra_edges) -> sp.csr_matrix:
+def _with_zero_slots(A: sp.spmatrix, extra_edges) -> sp.csr_matrix:
     """A with explicit-zero entries at both triangles of ``extra_edges``
     (make mode's candidate slots): additions become pure value updates, and
     a bf16-exactness test of the values sees the zeros they hold."""
     if extra_edges is None or not len(extra_edges):
-        return A
+        return sp.csr_matrix(A)
     e = np.asarray(extra_edges)
     C0 = sp.coo_matrix(A)
     r = np.concatenate([C0.row, e[:, 0], e[:, 1]])
     c = np.concatenate([C0.col, e[:, 1], e[:, 0]])
     v = np.concatenate([C0.data, np.zeros(2 * len(e), C0.data.dtype)])
     return sp.coo_matrix((v, (r, c)), shape=A.shape).tocsr()
+
+
+def _relabel(A: sp.spmatrix, perm: np.ndarray):
+    """A with node ``perm[r]`` relabeled r (an RCM order), permuted in COO
+    space: scipy's fancy-indexing permutation drops the explicit-zero slots
+    make mode depends on. Returns (the relabeled CSR matrix, pinv), pinv
+    mapping an original label to its new one."""
+    pinv = np.empty_like(perm)
+    pinv[perm] = np.arange(len(perm))
+    C = sp.coo_matrix(A)
+    return sp.coo_matrix((C.data, (pinv[C.row], pinv[C.col])),
+                         shape=A.shape).tocsr(), pinv
+
+
+def _unlabel(rows, cols, vals, shape, pinv=None) -> sp.csr_matrix:
+    """An operator's entries, in its labels, as a scipy matrix in the
+    original labels (relabeling by pinv undoes :func:`_relabel`'s;
+    ``pinv=None``: the labels are the same), explicit zeros dropped."""
+    C = sp.coo_matrix((vals, (rows, cols)), shape=shape)
+    out = C.tocsr() if pinv is None else _relabel(C, pinv)[0]
+    out.eliminate_zeros()
+    return out
 
 
 def _search(keys: np.ndarray, n: int, i, j) -> np.ndarray:
@@ -107,24 +143,36 @@ def _search(keys: np.ndarray, n: int, i, j) -> np.ndarray:
     return pos
 
 
-class _FrozenStructureMatrix:
-    """COO matrix with a fixed sparsity pattern and in-place value edits
-    (symmetric). (i, j) → slot lookups search the sorted row-major keys."""
+class _Adapter:
+    """The greedy sweep's view of its scored operator ``op``, whose
+    structure is frozen: edges are edited in place (``set_edge``, in the
+    original labels), and ``pinv`` maps an original node label to the
+    operator's (None: the operator keeps the original labels)."""
 
-    def __init__(self, A: sp.spmatrix, extra_edges: np.ndarray | None,
-                 dtype=torch.float64, *, device):
-        A = _with_slots(sp.csr_matrix(A, copy=True), extra_edges)
-        self.mat = CooMatrix.from_scipy(A, dtype=dtype, device=device)
-        k = self.mat.nnz
-        self._keys = _np(self.mat.rows[:k]) * self.mat.n + _np(
-            self.mat.cols[:k])
-        if extra_edges is not None and len(extra_edges):
-            # zero the placeholder values (in place)
-            idx = self._edge_positions(np.asarray(extra_edges))
-            self.mat.vals[torch.as_tensor(idx, device=self.mat.device)] = 0.0
+    def __init__(self, op, pinv: np.ndarray | None = None):
+        self.op = op
+        self.pinv = pinv
+
+    @property
+    def operator(self):
+        return self.op
+
+    def map_edges(self, E: np.ndarray) -> np.ndarray:
+        return E if self.pinv is None else self.pinv[np.asarray(E)]
+
+
+class _SlotAdapter(_Adapter):
+    """An adapter whose operator holds each entry in a flat value slot:
+    (i, j) → slot by a search over the entries' sorted row-major keys.
+    Edits and the fused lane (:mod:`.fused`) write the slots in the storage
+    ``fused_state`` returns, ``_local`` mapping a slot to its place there."""
+
+    def _set_keys(self, keys: np.ndarray, slots: np.ndarray) -> None:
+        by_key = np.argsort(keys, kind="stable")
+        self._keys, self._slots = keys[by_key], slots[by_key]
 
     def _lookup(self, i, j) -> np.ndarray:
-        return _search(self._keys, self.mat.n, i, j)
+        return self._slots[_search(self._keys, self.op.n, i, j)]
 
     def _edge_positions(self, edges: np.ndarray) -> np.ndarray:
         e = np.asarray(edges, np.int64).reshape(-1, 2)
@@ -132,25 +180,18 @@ class _FrozenStructureMatrix:
         p2 = self._lookup(e[:, 1], e[:, 0])
         return np.concatenate([p1, p2[e[:, 0] != e[:, 1]]])
 
+    def _local(self, slots: np.ndarray) -> np.ndarray:
+        return slots
+
     def set_edge(self, i: int, j: int, value: float):
-        idx = self._edge_positions(np.array([[i, j]]))
-        self.mat.vals[torch.as_tensor(idx, device=self.mat.device)] = value
-
-    def to_scipy(self) -> sp.csr_matrix:
-        out = self.mat.to_scipy()
-        out.eliminate_zeros()
-        return out
-
-    @property
-    def operator(self):
-        return self.mat
-
-    def map_edges(self, E: np.ndarray) -> np.ndarray:
-        return E
+        _, vals = self.fused_state()
+        idx = self._local(self._edge_positions(
+            self.map_edges(np.array([[i, j]]))))
+        vals[torch.as_tensor(idx, device=vals.device)] = value
 
     # -- fused multi-step hooks (optimize/fused.py) -------------------------
     def fused_state(self):
-        return self.mat, self.mat.vals
+        return self.op, self.op.vals
 
     @staticmethod
     def fused_rebuild(op, vals):
@@ -160,40 +201,39 @@ class _FrozenStructureMatrix:
 
     def fused_slots(self, E: np.ndarray) -> np.ndarray:
         E = np.asarray(E, np.int64).reshape(-1, 2)
-        return np.stack([self._lookup(E[:, 0], E[:, 1]),
-                         self._lookup(E[:, 1], E[:, 0])], axis=1)
+        return np.stack([self._local(self._lookup(E[:, a], E[:, b]))
+                         for a, b in ((0, 1), (1, 0))], axis=1)
 
     def set_fused_vals(self, vals):
-        self.mat = dataclasses.replace(self.mat, vals=vals)
+        self.op = self.fused_rebuild(self.op, vals)
+
+
+class _FrozenStructureMatrix(_SlotAdapter):
+    """COO matrix with a fixed sparsity pattern and in-place value edits
+    (symmetric); entry k's value is slot k."""
+
+    def __init__(self, A: sp.spmatrix, extra_edges: np.ndarray | None,
+                 dtype=torch.float64, *, device):
+        super().__init__(CooMatrix.from_scipy(
+            _with_zero_slots(A, extra_edges), dtype=dtype, device=device))
+        k = self.op.nnz
+        self._set_keys(_np(self.op.rows[:k]) * self.op.n
+                       + _np(self.op.cols[:k]), np.arange(k))
+
+    @property
+    def mat(self) -> CooMatrix:
+        """The operator under the name benchmark/tests' fault hooks read."""
+        return self.op
+
+    def to_scipy(self) -> sp.csr_matrix:
+        return _unlabel(*self.op.host_coo(), self.op.shape)
 
 
 def _batch_axis(mesh):
     return "cands" if "cands" in mesh.shape else None
 
 
-class _ShardedSlots:
-    """(i, j) → global flat position of a sharded operator's value slot (a
-    search over the sorted row-major keys), and positions in this rank's
-    storage for the fused lane, where another rank's slot maps to the
-    scratch element."""
-
-    def _set_keys(self, keys: np.ndarray, flat: np.ndarray) -> None:
-        by_key = np.argsort(keys, kind="stable")
-        self._keys, self._flat = keys[by_key], flat[by_key]
-
-    def _lookup(self, i, j) -> np.ndarray:
-        return self._flat[_search(self._keys, self.operator.n, i, j)]
-
-    _edge_positions = _FrozenStructureMatrix._edge_positions
-
-    def fused_slots(self, E: np.ndarray) -> np.ndarray:
-        E = np.asarray(E, np.int64).reshape(-1, 2)
-        return np.stack([self.operator.local_positions(
-            self._lookup(E[:, a], E[:, b])) for a, b in ((0, 1), (1, 0))],
-            axis=1)
-
-
-class _ShardedFrozenMatrix(_ShardedSlots):
+class _ShardedFrozenMatrix(_SlotAdapter):
     """Frozen-structure adapter over :class:`..parallel.spmm_sharded.
     RowShardedMatrix` (COO layout): the row-partitioned operator, with the
     candidate batch split over a ``cands`` axis on a 2-D mesh. Slots are
@@ -207,54 +247,33 @@ class _ShardedFrozenMatrix(_ShardedSlots):
         from ..parallel.spmm_sharded import RowShardedMatrix
 
         mesh = default_mesh(device=device) if mesh is None else mesh
-        A = _with_slots(sp.csr_matrix(A, copy=True), extra_edges)
-        self.mat = RowShardedMatrix.from_scipy(A, mesh, dtype=dtype,
-                                               batch_axis=_batch_axis(mesh))
+        A = _with_zero_slots(A, extra_edges)
+        super().__init__(RowShardedMatrix.from_scipy(
+            A, mesh, dtype=dtype, batch_axis=_batch_axis(mesh)))
         # global flat position of each entry, mirroring from_scipy's packing
         # (row-sorted, each shard's run contiguous)
         C = sp.coo_matrix(A)
         order = np.argsort(C.row, kind="stable")
         rows, cols = C.row[order].astype(np.int64), C.col[order]
-        D = mesh.shape[self.mat.axis]
-        shard_of = rows // self.mat.rows_per_shard
+        D = mesh.shape[self.op.axis]
+        shard_of = rows // self.op.rows_per_shard
         starts = np.concatenate(
             [[0], np.cumsum(np.bincount(shard_of, minlength=D))[:-1]])
-        self._set_keys(rows * self.mat.n + cols, shard_of *
-                       self.mat.nnz_shard + (np.arange(len(rows))
-                                             - starts[shard_of]))
-        if extra_edges is not None and len(extra_edges):
-            self.set_edges(np.asarray(extra_edges), 0.0)
+        self._set_keys(rows * self.op.n + cols, shard_of *
+                       self.op.nnz_shard + (np.arange(len(rows))
+                                            - starts[shard_of]))
 
-    def set_edges(self, edges, value: float):
-        idx = self.mat.local_positions(self._edge_positions(edges))
-        self.mat.vals[torch.as_tensor(idx, device=self.mat.device)] = value
-
-    def set_edge(self, i: int, j: int, value: float):
-        self.set_edges(np.array([[i, j]]), value)
-
-    @property
-    def operator(self):
-        return self.mat
-
-    def map_edges(self, E: np.ndarray) -> np.ndarray:
-        return E
+    def _local(self, slots: np.ndarray) -> np.ndarray:
+        return self.op.local_positions(slots)
 
     def to_scipy(self) -> sp.csr_matrix:
-        rows, cols, vals = self.mat.gather_coo()
-        n = self.mat.n_orig
         # pad slots carry val 0 and go with the zeros
-        out = sp.coo_matrix((vals, (rows, cols)),
-                            shape=(self.mat.n, self.mat.n)).tocsr()[:n, :n]
-        out.eliminate_zeros()
-        return out
-
-    # -- fused multi-step hooks (fused_slots: positions in this rank's vals)
-    fused_state = _FrozenStructureMatrix.fused_state
-    fused_rebuild = staticmethod(_FrozenStructureMatrix.fused_rebuild)
-    set_fused_vals = _FrozenStructureMatrix.set_fused_vals
+        n = self.op.n_orig
+        return _unlabel(*self.op.gather_coo(),
+                        (self.op.n, self.op.n))[:n, :n]
 
 
-class _ShardedBsrFrozenMatrix(_ShardedSlots):
+class _ShardedBsrFrozenMatrix(_SlotAdapter):
     """Frozen-structure adapter over :class:`..parallel.spmm_sharded.
     BsrRowShardedMatrix`, whose local product is K1/K2. Globally
     RCM-permuted at build time, so each shard's block is banded; candidate
@@ -271,41 +290,23 @@ class _ShardedBsrFrozenMatrix(_ShardedSlots):
         from ..parallel.spmm_sharded import BsrRowShardedMatrix
 
         mesh = default_mesh(device=device) if mesh is None else mesh
-        A = _with_zero_slots(sp.csr_matrix(A, copy=True), extra_edges)
-        perm = rcm_permutation(A)
-        self.pinv = np.empty_like(perm)
-        self.pinv[perm] = np.arange(len(perm))
-        # permute in COO space (scipy's fancy indexing would drop the
-        # explicit-zero addition slots)
-        C1 = sp.coo_matrix(A)
-        Ap = sp.coo_matrix((C1.data, (self.pinv[C1.row], self.pinv[C1.col])),
-                           shape=A.shape).tocsr()
-        self.op = BsrRowShardedMatrix.from_scipy(
-            Ap, mesh, dtype=dtype, batch_axis=_batch_axis(mesh), tile=tile)
+        A = _with_zero_slots(A, extra_edges)
+        Ap, pinv = _relabel(A, rcm_permutation(A))
+        super().__init__(BsrRowShardedMatrix.from_scipy(
+            Ap, mesh, dtype=dtype, batch_axis=_batch_axis(mesh), tile=tile),
+            pinv)
         rc = self.op.entry_rc()
         self._set_keys(rc[:, 0] * self.op.n + rc[:, 1],
                        self.op.entry_positions())
 
-    @property
-    def operator(self):
-        return self.op
-
-    def map_edges(self, E: np.ndarray) -> np.ndarray:
-        return self.pinv[np.asarray(E)]
-
-    def set_edge(self, i: int, j: int, value: float):
-        pi, pj = int(self.pinv[i]), int(self.pinv[j])
-        self.op.set_flat(self._edge_positions(np.array([[pi, pj]])), value)
+    def _local(self, slots: np.ndarray) -> np.ndarray:
+        return self.op.local_positions(slots)
 
     def to_scipy(self) -> sp.csr_matrix:
         rc = self.op.entry_rc()
-        vals = self.op.entry_values().astype(np.float64)
-        perm = np.empty_like(self.pinv)
-        perm[self.pinv] = np.arange(len(self.pinv))
-        out = sp.coo_matrix((vals, (perm[rc[:, 0]], perm[rc[:, 1]])),
-                            shape=self.op.shape).tocsr()
-        out.eliminate_zeros()
-        return out
+        return _unlabel(rc[:, 0], rc[:, 1],
+                        self.op.entry_values().astype(np.float64),
+                        self.op.shape, self.pinv)
 
     # -- fused multi-step hooks: this rank's flattened tiles and scratch ----
     def fused_state(self):
@@ -317,37 +318,18 @@ class _ShardedBsrFrozenMatrix(_ShardedSlots):
 
         return sharded_bsr_rebuild(op, flat_vals)
 
-    def set_fused_vals(self, flat_vals):
-        self.op = self.fused_rebuild(self.op, flat_vals)
 
-
-class _BandedAdapter:
-    """Greedy-facing adapter over an RCM-permuted operator: maps original
-    node ids through the permutation for scoring and edits."""
-
-    def __init__(self, op, pinv: np.ndarray):
-        self.op = op
-        self.pinv = pinv
-
-    @property
-    def operator(self):
-        return self.op
-
-    def map_edges(self, E: np.ndarray) -> np.ndarray:
-        return self.pinv[np.asarray(E)]
+class _BandedAdapter(_Adapter):
+    """Adapter over an RCM-relabeled operator that edits its own entries
+    (the banded operator; the super-tile one through :class:`_BsrAdapter`):
+    original node ids map through the permutation for scoring and edits."""
 
     def set_edge(self, i: int, j: int, value: float):
         self.op.set_edge(int(self.pinv[i]), int(self.pinv[j]), value)
 
     def to_scipy(self) -> sp.csr_matrix:
-        rows, cols = self.op._entry_rc
-        perm = np.empty_like(self.pinv)
-        perm[self.pinv] = np.arange(len(self.pinv))
-        out = sp.coo_matrix(
-            (self.op.entry_values(), (perm[rows], perm[cols])),
-            shape=(self.op.n, self.op.n)).tocsr()
-        out.eliminate_zeros()
-        return out
+        return _unlabel(*self.op._entry_rc, self.op.entry_values(),
+                        self.op.shape, self.pinv)
 
 
 class _BsrAdapter(_BandedAdapter):
@@ -377,6 +359,57 @@ class _BsrAdapter(_BandedAdapter):
         self.op.atiles = flat_vals.view(self.op.atiles.shape)
 
 
+class _Tally:
+    """A sweep's bookkeeping: the search space ``top`` (the surviving
+    candidates in centrality order), the committed edges with their
+    Δtrace, Krylov steps and wall seconds, the running Δtrace, and the
+    checkpoint (None: none) they are saved to."""
+
+    def __init__(self, top: np.ndarray, checkpoint, dataset: str):
+        self.top = top
+        self.checkpoint, self.dataset = checkpoint, dataset
+        self.chosen: list = []
+        self.deltas: list = []
+        self.iters: list = []
+        self.times: list = []
+        self.rob = 0.0
+
+    def record(self, edge, delta, iters, seconds: float) -> np.ndarray:
+        """Record a committed edge and drop it from the search space
+        (``greedy_krylov.m:68-71``); returns the mask of ``top`` kept."""
+        i, j = int(edge[0]), int(edge[1])
+        keep = ~((self.top[:, 0] == i) & (self.top[:, 1] == j))
+        self.top = self.top[keep]
+        self.chosen.append((i, j))
+        self.deltas.append(float(delta))
+        self.iters.append(int(iters))
+        self.rob += float(delta)
+        self.times.append(seconds)
+        return keep
+
+    def save(self):
+        if self.checkpoint is not None:
+            self.checkpoint.save(self.dataset, len(self.chosen), self.chosen,
+                                 self.rob, extra={"deltas": self.deltas,
+                                                  "iters": self.iters,
+                                                  "times": self.times})
+
+    def finish(self, F, fused_accepted: int = 0) -> GreedyResult:
+        """The sweep's result; its checkpoint is cleared."""
+        if self.checkpoint is not None:
+            self.checkpoint.clear()
+        mode = getattr(F.operator, "mode", None)
+        name = type(F.operator).__name__
+        return GreedyResult(
+            edges=np.asarray(self.chosen, dtype=np.int64).reshape(-1, 2),
+            rob_variation=self.rob, A_new=F.to_scipy(),
+            per_step_delta=np.asarray(self.deltas),
+            per_step_iters=np.asarray(self.iters),
+            per_step_time=np.asarray(self.times),
+            operator=f"{name}({mode})" if mode else name,
+            fused_accepted=fused_accepted)
+
+
 def krylov_miobi(
     A: sp.spmatrix,
     k: int,
@@ -395,6 +428,7 @@ def krylov_miobi(
     Krylov trace updates (``functions/krylov_miobi.m``): 'break' removes the
     arg-min Δtrace edge per step, 'make' adds the arg-max. E defaults to all
     existing edges (``krylov_miobi.m:43-52``)."""
+    rule = _ModeRule.of(mode, rescale)
     A = sp.csr_matrix(A)
     if (abs(A - A.T) > 1e-12).nnz:
         raise ValueError("adjacency matrix must be symmetric")
@@ -402,40 +436,16 @@ def krylov_miobi(
         C = sp.coo_matrix(sp.tril(A))
         E = np.stack([C.row, C.col], axis=1)
     E = np.asarray(E, dtype=np.int64)
-    if mode == "break" and A.nnz < 2 * k:
+    if not rule.adds and A.nnz < 2 * k:
         raise ValueError("edges to be removed exceed edges in the network")
-    sign = -1.0 if mode == "break" else +1.0
-    dev = resolve_device(device)
-    F = _FrozenStructureMatrix(A, extra_edges=E if mode == "make" else None,
-                               dtype=float_dtype(dtype), device=dev)
-    chosen, deltas, iters, times = [], [], [], []
-    rob = 0.0
-    # fixed-size candidate array + alive mask (no per-step shape changes)
-    alive = np.ones(len(E), dtype=bool)
-    for _ in range(min(k, len(E))):
-        t_step = time.perf_counter()
-        res = trace_fun_update_edges(
-            F.operator, F.map_edges(E), sign=sign, fun=fun, tol=tol,
-            rescale=rescale, schedule=schedule, shift=shift)
-        scores = _np(res.delta).copy()
-        if not _guard_scores(scores[alive], len(chosen)):
-            scores[~np.isfinite(scores)] = np.inf if mode == "break" \
-                else -np.inf
-        scores[~alive] = np.inf if mode == "break" else -np.inf
-        h = int(np.argmin(scores) if mode == "break" else np.argmax(scores))
-        i, j = int(E[h, 0]), int(E[h, 1])
-        chosen.append((i, j))
-        deltas.append(float(scores[h]))
-        iters.append(int(_np(res.iters)[h]))
-        rob += float(scores[h])
-        F.set_edge(i, j, 0.0 if mode == "break" else 1.0 / rescale)
-        alive[h] = False
-        times.append(time.perf_counter() - t_step)
-    return GreedyResult(
-        edges=np.asarray(chosen, dtype=np.int64).reshape(-1, 2),
-        rob_variation=rob, A_new=F.to_scipy(),
-        per_step_delta=np.asarray(deltas), per_step_iters=np.asarray(iters),
-        per_step_time=np.asarray(times))
+    F = _FrozenStructureMatrix(A, extra_edges=E if rule.adds else None,
+                               dtype=float_dtype(dtype), device=device)
+    score_kw = dict(sign=rule.sign, fun=fun, tol=tol, rescale=float(rescale),
+                    schedule=schedule, shift=shift)
+    # the whole candidate set is the window; its steps carry sweep id 0,
+    # which no greedy_krylov sweep takes
+    return _greedy_loop(F, _Tally(E, None, ""), len(E), min(k, len(E)),
+                        rule, score_kw, sweep=0)
 
 
 def choose_operator(A, top, Q: int, mode: str, backend: str,
@@ -453,16 +463,17 @@ def choose_operator(A, top, Q: int, mode: str, backend: str,
     from ..ops.banded_spmm import banded_fits, rcm_permutation
     from ..ops.bsr_super import TILE_C, TILE_R, super_tile_count
 
+    adds = _ModeRule.of(mode).adds
     if backend == "coo" or (backend == "auto" and device.type != "cuda"):
         return "coo", None, None
     perm = rcm_permutation(A)
     if backend == "bsr" or (backend == "auto" and 2 * Q >= 256):
-        A_aug = _with_zero_slots(A, top if mode == "make" else None)
+        A_aug = _with_zero_slots(A, top if adds else None)
         # bf16 tile storage (mode auto picks bf16x2 for 0/±1 adjacency)
         if super_tile_count(A_aug, perm) * TILE_R * TILE_C * 2 \
                 <= BSR_STORAGE_CAP:
             return "bsr", perm, A_aug
-    if mode == "break" and banded_fits(A, perm):
+    if not adds and banded_fits(A, perm):
         return "banded", perm, None
     return "coo", None, None
 
@@ -514,6 +525,7 @@ def greedy_krylov(
     ``load(dataset)``, ``save(dataset, step, edges, rob, extra=...)`` and
     ``clear()``.
     """
+    rule = _ModeRule.of(mode, rescale)
     t_build = time.perf_counter()
     with tracing.span("sweep.build"):
         dev = resolve_device(device)
@@ -530,18 +542,15 @@ def greedy_krylov(
         A = sp.csr_matrix(A, copy=True)
         if Q is None or Q == 0:
             Q = int(A.sum(axis=0).max())
-        if mode == "break" and A.nnz < 2 * k:
+        if not rule.adds and A.nnz < 2 * k:
             raise ValueError("edges to be removed exceed edges in the network")
         t_cands = time.perf_counter()
         with tracing.span("sweep.candidates", mode, Q + k):
-            if mode == "make":
-                top = find_top_missing_edges(A, centrality, Q + k, order)
-            else:
-                top = find_top_edges(A, centrality, Q + k, order)
+            top = (find_top_missing_edges if rule.adds else find_top_edges)(
+                A, centrality, Q + k, order)
         tracing.count("sweep.candidates_s", time.perf_counter() - t_cands)
-        sign = -1.0 if mode == "break" else +1.0
 
-        extra = top if mode == "make" else None
+        extra = top if rule.adds else None
         if backend == "sharded":
             F = _ShardedFrozenMatrix(A, extra, dtype=dtype, mesh=mesh,
                                      device=dev)
@@ -549,11 +558,14 @@ def greedy_krylov(
             F = _ShardedBsrFrozenMatrix(A, extra, dtype=dtype, mesh=mesh,
                                         device=dev)
         else:
-            F = _single_device_operator(A, top, Q, mode, backend, dtype, dev)
+            F = _single_device_operator(A, top, Q, rule, backend, dtype, dev)
     tracing.count("sweep.build_s", time.perf_counter() - t_build)
     # entries the operator holds beyond A's: make mode's candidate slots
     tracing.count("sweep.slots", F.operator.nnz - A.nnz)
     sweep = tracing.count("sweep.builds")  # the sweep's id in the process
+    score_kw = dict(sign=rule.sign, fun=fun, tol=tol, rescale=float(rescale),
+                    schedule=schedule, shift=shift)
+    tally = _Tally(top, checkpoint, dataset)
 
     # Below the dense cutoff the per-step loop scores exactly; above the
     # cell ceiling the fused block (one scoring call per step, unchunked)
@@ -565,88 +577,61 @@ def greedy_krylov(
             and (Q + fused_steps + 64) * A.shape[0]
             <= (3 * trace_update.MAX_SCORE_CELLS) // 4
             and hasattr(F, "fused_state")):
-        return _greedy_loop_fused(F, top, Q, k, mode, sign, fun, tol,
-                                  rescale, schedule, shift, checkpoint,
-                                  dataset, R=fused_steps, sweep=sweep)
-    return _greedy_loop(F, top, Q, k, mode, sign, fun, tol, rescale,
-                        schedule, shift, checkpoint, dataset,
+        return _greedy_loop_fused(F, tally, Q, k, rule, score_kw,
+                                  R=fused_steps, sweep=sweep)
+    return _greedy_loop(F, tally, Q, k, rule, score_kw,
                         rescore_every=rescore_every,
                         rescore_frac=rescore_frac, sweep=sweep)
 
 
-def _single_device_operator(A, top, Q: int, mode: str, backend: str, dtype,
-                            dev):
+def _single_device_operator(A, top, Q: int, rule: _ModeRule, backend: str,
+                            dtype, dev):
     """The adapter over the operator :func:`choose_operator` picks."""
-    kind, perm, A_aug = choose_operator(A, top, Q, mode, backend, dev)
-    if kind != "coo":
-        pinv = np.empty_like(perm)
-        pinv[perm] = np.arange(len(perm))
+    kind, perm, A_aug = choose_operator(A, top, Q, rule.mode, backend, dev)
     if kind == "bsr":
         from ..ops.bsr_super import SuperBsrOperator
 
-        # permute in COO space: scipy's fancy-indexing permutation drops the
-        # explicit-zero slots make mode depends on
-        C1 = sp.coo_matrix(A_aug)
-        Ap = sp.coo_matrix((C1.data, (pinv[C1.row], pinv[C1.col])),
-                           shape=A.shape).tocsr()
-        F = _BsrAdapter(SuperBsrOperator(Ap, dtype=dtype, device=dev), pinv)
-    elif kind == "banded":
+        Ap, pinv = _relabel(A_aug, perm)
+        return _BsrAdapter(SuperBsrOperator(Ap, dtype=dtype, device=dev),
+                           pinv)
+    if kind == "banded":
         from ..ops.banded_spmm import BandedEllOperator
 
-        # break mode has no explicit-zero slots to lose: permute as the JAX
-        # package does, so that the entry order matches its operator's
-        Ap = A[perm, :].tocsc()[:, perm].tocsr()
-        F = _BandedAdapter(BandedEllOperator(Ap, dtype=dtype, device=dev),
-                           pinv)
-    else:
-        F = _FrozenStructureMatrix(
-            A, extra_edges=top if mode == "make" else None, dtype=dtype,
-            device=dev)
-    return F
+        Ap, pinv = _relabel(A, perm)
+        return _BandedAdapter(BandedEllOperator(Ap, dtype=dtype, device=dev),
+                              pinv)
+    return _FrozenStructureMatrix(A, top if rule.adds else None, dtype=dtype,
+                                  device=dev)
 
 
-def _replay_checkpoint(F, top, mode, rescale, checkpoint, dataset):
-    """Resume bookkeeping shared by the per-step and fused loops: re-apply
-    recorded edits, shrink the search space, restore the running tallies."""
-    chosen: list = []
-    deltas: list = []
-    iters: list = []
-    times: list = []
-    rob = 0.0
-    start_step = 0
-    if checkpoint is not None:
-        state = checkpoint.load(dataset)
-        if state is not None:
-            for i, j in state["edges"]:
-                F.set_edge(int(i), int(j),
-                           0.0 if mode == "break" else 1.0 / rescale)
-                top = top[~((top[:, 0] == i) & (top[:, 1] == j))]
-                chosen.append((int(i), int(j)))
-            rob = state["rob_variation"]
-            start_step = state["step"]
-            deltas = list(state["extra"].get("deltas", [0.0] * start_step))
-            iters = list(state["extra"].get("iters", [0] * start_step))
-            times = list(state["extra"].get("times", [0.0] * start_step))
-    return top, chosen, deltas, iters, times, rob, start_step
+def _replay_checkpoint(F, rule: _ModeRule, tally: _Tally) -> int:
+    """Resume from the tally's checkpoint, for the per-step and fused loops
+    alike: re-apply its edits, shrink the search space, restore the running
+    tallies. Returns the step to resume at (0 without a checkpoint)."""
+    state = None if tally.checkpoint is None \
+        else tally.checkpoint.load(tally.dataset)
+    if state is None:
+        return 0
+    for i, j in state["edges"]:
+        F.set_edge(int(i), int(j), rule.commit)
+        tally.record((i, j), 0.0, 0, 0.0)  # its figures are restored below
+    step = state["step"]
+    tally.rob = state["rob_variation"]
+    tally.deltas = list(state["extra"].get("deltas", [0.0] * step))
+    tally.iters = list(state["extra"].get("iters", [0] * step))
+    tally.times = list(state["extra"].get("times", [0.0] * step))
+    return step
 
 
-def _describe(op) -> str:
-    mode = getattr(op, "mode", None)
-    return f"{type(op).__name__}({mode})" if mode else type(op).__name__
+def _score(F, E: np.ndarray, score_kw: dict):
+    """One scoring call over the candidate edges E (original labels): their
+    Δtrace (a writable copy) and Krylov steps, on the host."""
+    res = trace_fun_update_edges(F.operator, F.map_edges(E), **score_kw)
+    return _np(res.delta).copy(), _np(res.iters)
 
 
-def _result(F, chosen, rob, deltas, iters, times,
-            fused_accepted: int = 0) -> GreedyResult:
-    return GreedyResult(
-        edges=np.asarray(chosen, dtype=np.int64).reshape(-1, 2),
-        rob_variation=rob, A_new=F.to_scipy(),
-        per_step_delta=np.asarray(deltas), per_step_iters=np.asarray(iters),
-        per_step_time=np.asarray(times), operator=_describe(F.operator),
-        fused_accepted=fused_accepted)
-
-
-def _greedy_loop_fused(F, top, Q, k, mode, sign, fun, tol, rescale, schedule,
-                       shift, checkpoint, dataset, R=8, *, sweep: int):
+def _greedy_loop_fused(F, tally: _Tally, Q, k, rule: _ModeRule,
+                       score_kw: dict, R=8, *, sweep: int):
     """Fused-block budget loop: R greedy steps per block (:mod:`.fused`, the
     reference hot loop ``krylov_miobi.m:112-137``). A step whose window has
     convergence stragglers beyond the fused budget is replayed through the
@@ -654,30 +639,8 @@ def _greedy_loop_fused(F, top, Q, k, mode, sign, fun, tol, rescale, schedule,
     from ..funm.scalar import get_fun
     from .fused import fused_greedy_block
 
-    rescale = float(rescale)
-    fun_name = get_fun(fun).name
-    top, chosen, deltas, iters, times, rob, step = _replay_checkpoint(
-        F, top, mode, rescale, checkpoint, dataset)
-    commit = 0.0 if mode == "break" else 1.0 / rescale
-
-    def record(i, j, d, it, t):
-        nonlocal rob
-        chosen.append((int(i), int(j)))
-        deltas.append(float(d))
-        iters.append(int(it))
-        rob += float(d)
-        times.append(t)
-
-    def shrink(i, j):
-        nonlocal top
-        top = top[~((top[:, 0] == i) & (top[:, 1] == j))]
-
-    def save():
-        if checkpoint is not None:
-            checkpoint.save(dataset, step, chosen, rob,
-                            extra={"deltas": deltas, "iters": iters,
-                                   "times": times})
-
+    fun_name = get_fun(score_kw["fun"]).name
+    step = _replay_checkpoint(F, rule, tally)
     # fixed candidate-table size for the whole sweep, a multiple of the
     # 'cands' axis of a sharded operator (its product splits the columns)
     op0, _ = F.fused_state()
@@ -695,8 +658,8 @@ def _greedy_loop_fused(F, top, Q, k, mode, sign, fun, tol, rescale, schedule,
         if not devolved:
             with tracing.span("step", sweep, step):  # the whole block
                 t0 = time.perf_counter()
-                nC = min(len(top), nC_pad)
-                table = top[:nC]
+                nC = min(len(tally.top), nC_pad)
+                table = tally.top[:nC]
                 if nC_pad > nC:
                     table = np.concatenate(
                         [table, np.repeat(table[:1], nC_pad - nC, axis=0)])
@@ -706,39 +669,39 @@ def _greedy_loop_fused(F, top, Q, k, mode, sign, fun, tol, rescale, schedule,
                 slots = F.fused_slots(mapped)
                 op, vals = F.fused_state()
                 vals_f, _, outs = fused_greedy_block(
-                    op, vals, mapped, slots, alive, commit, tol, shift, sign,
-                    rescale, rebuild=F.fused_rebuild, Q=Q, R=R, mode=mode,
-                    fun_name=fun_name)
+                    op, vals, mapped, slots, alive, rule.commit,
+                    score_kw["tol"], score_kw["shift"], rule.sign,
+                    score_kw["rescale"], rebuild=F.fused_rebuild, Q=Q, R=R,
+                    mode=rule.mode, fun_name=fun_name)
                 hs, dls, its, oks, nfs = (_np(t) for t in outs)
                 while acc < want and oks[acc]:
                     acc += 1
                 if np.any(nfs[:max(acc, 1)]):
                     warnings.warn(
-                        f"fused greedy {dataset}: non-finite candidate scores "
-                        f"in steps {step}..{step + acc} (excluded from the "
-                        "argmin)", RuntimeWarning)
+                        f"fused greedy {tally.dataset}: non-finite candidate "
+                        f"scores in steps {step}..{step + acc} (excluded "
+                        "from the argmin)", RuntimeWarning)
                 t_per = (time.perf_counter() - t0) / max(acc, 1)
                 for r in range(acc):
-                    h = int(hs[r])
-                    record(table[h, 0], table[h, 1], dls[r], its[r], t_per)
-                    shrink(table[h, 0], table[h, 1])
+                    tally.record(table[hs[r]], dls[r], its[r], t_per)
                 if acc == R:
                     F.set_fused_vals(vals_f)
                 elif acc > 0:
                     # the block worked on a copy: commit the accepted winners
                     # into the pre-block storage, in place
                     idxs = slots[hs[:acc]].reshape(-1)
-                    vals[torch.as_tensor(idxs, device=vals.device)] = commit
+                    vals[torch.as_tensor(idxs, device=vals.device)] = \
+                        rule.commit
                     F.set_fused_vals(vals)
                 step += acc
                 fused_accepted += acc
             if acc:
-                save()
+                tally.save()
             consec_bad = consec_bad + 1 if acc == 0 else 0
             if consec_bad >= 2:
                 devolved = True
                 warnings.warn(
-                    f"fused greedy {dataset}: convergence stragglers "
+                    f"fused greedy {tally.dataset}: convergence stragglers "
                     f"outlive the fused budget persistently at step {step};"
                     " devolving to per-step scoring for the remaining "
                     "budget", RuntimeWarning)
@@ -747,31 +710,19 @@ def _greedy_loop_fused(F, top, Q, k, mode, sign, fun, tol, rescale, schedule,
             # through the accurate per-step lane
             with tracing.span("step", sweep, step):
                 t1 = time.perf_counter()
-                E = top[:Q]
-                res = trace_fun_update_edges(
-                    F.operator, F.map_edges(E), sign=sign, fun=fun, tol=tol,
-                    rescale=rescale, schedule=schedule, shift=shift)
-                scores = _np(res.delta).copy()
-                worst = np.inf if mode == "break" else -np.inf
-                if not _guard_scores(scores, step, dataset):
-                    scores[~np.isfinite(scores)] = worst
-                h = int(np.argmin(scores) if mode == "break"
-                        else np.argmax(scores))
-                i, j = int(E[h, 0]), int(E[h, 1])
-                F.set_edge(i, j, commit)
-                record(i, j, scores[h], _np(res.iters)[h],
-                       time.perf_counter() - t1)
-                shrink(i, j)
+                E = tally.top[:Q]
+                scores, iters = _score(F, E, score_kw)
+                h = rule.pick(scores, step, tally.dataset)
+                F.set_edge(int(E[h, 0]), int(E[h, 1]), rule.commit)
+                tally.record(E[h], scores[h], iters[h],
+                             time.perf_counter() - t1)
                 step += 1
-            save()
-    if checkpoint is not None:
-        checkpoint.clear()
-    return _result(F, chosen, rob, deltas, iters, times, fused_accepted)
+            tally.save()
+    return tally.finish(F, fused_accepted)
 
 
-def _greedy_loop(F, top, Q, k, mode, sign, fun, tol, rescale, schedule,
-                 shift, checkpoint, dataset, rescore_every=1,
-                 rescore_frac=0.2, *, sweep: int):
+def _greedy_loop(F, tally: _Tally, Q, k, rule: _ModeRule, score_kw: dict,
+                 rescore_every=1, rescore_frac=0.2, *, sweep: int):
     """The per-step budget loop: score the surviving Q candidates in one
     batched call, commit the best edge, shrink the search space
     (``greedy_krylov.m:64-93``).
@@ -782,92 +733,53 @@ def _greedy_loop(F, top, Q, k, mode, sign, fun, tol, rescale, schedule,
     each step, and a stale would-be winner forces a full rescore, so the
     committed pick always carries a fresh score. 1 is the reference
     protocol."""
-    rescale = float(rescale)
-    top, chosen, deltas, iters, times, rob, start_step = _replay_checkpoint(
-        F, top, mode, rescale, checkpoint, dataset)
-    worst = np.inf if mode == "break" else -np.inf
-    scores_all = np.full(len(top), np.nan)  # stale scores aligned with top
-    iters_all = np.zeros(len(top), np.int64)
-    have_scores = False
+    start_step = _replay_checkpoint(F, rule, tally)
+    scores_all = np.full(len(tally.top), np.nan)  # stale scores, as top
+    iters_all = np.zeros(len(tally.top), np.int64)
     last_edit = None
     for step in range(start_step, k):
         with tracing.span("step", sweep, step):
             t_step = time.perf_counter()
-            E = top[:Q]
+            E = tally.top[:Q]
             nE = len(E)
-            do_full = (rescore_every <= 1 or not have_scores
-                       or (step - start_step) % rescore_every == 0)
-            if not do_full:
+            h = None
+            if (rescore_every > 1 and last_edit is not None
+                    and (step - start_step) % rescore_every):
                 stale = scores_all[:nE]
                 # fixed-size fresh subset, padded to a multiple of 64
                 T_fix = min(nE, max(64, -(-int(nE * rescore_frac) // 64) * 64))
-                rank_key = np.where(np.isnan(stale), worst,
-                                    stale if mode == "break" else -stale)
+                rank_key = np.where(np.isnan(stale), rule.worst,
+                                    -rule.sign * stale)
                 order = np.argsort(rank_key, kind="stable")
                 sel_mask = np.zeros(nE, bool)
                 sel_mask[order[:T_fix]] = True
                 sel_mask |= np.isnan(stale)
-                if last_edit is not None:
-                    li, lj = last_edit
-                    sel_mask |= ((E[:, 0] == li) | (E[:, 1] == li)
-                                 | (E[:, 0] == lj) | (E[:, 1] == lj))
+                li, lj = last_edit
+                sel_mask |= ((E[:, 0] == li) | (E[:, 1] == li)
+                             | (E[:, 0] == lj) | (E[:, 1] == lj))
                 sel = np.nonzero(sel_mask)[0]
                 want = min(nE, -(-len(sel) // 64) * 64)
                 if len(sel) < want:  # fill with next-best stale candidates
                     extra = order[~sel_mask[order]][: want - len(sel)]
                     sel = np.sort(np.concatenate([sel, extra]))
-                res = trace_fun_update_edges(
-                    F.operator, F.map_edges(E[sel]), sign=sign, fun=fun,
-                    tol=tol, rescale=rescale, schedule=schedule, shift=shift)
-                scores = stale.copy()
-                scores[sel] = _np(res.delta)
-                iters_vec = iters_all[:nE].copy()
-                iters_vec[sel] = _np(res.iters)
-                guarded = np.zeros(nE, bool)
-                if not _guard_scores(scores, step, dataset):
-                    guarded = ~np.isfinite(scores)
-                    scores[guarded] = worst
-                h = int(np.argmin(scores) if mode == "break"
-                        else np.argmax(scores))
+                scores, iters_vec = stale.copy(), iters_all[:nE].copy()
+                scores[sel], iters_vec[sel] = _score(F, E[sel], score_kw)
+                h = rule.pick(scores, step, tally.dataset)
                 if not sel_mask[h]:
-                    do_full = True  # stale would-be winner: rescore everything
-            if do_full:
-                res = trace_fun_update_edges(
-                    F.operator, F.map_edges(E), sign=sign, fun=fun, tol=tol,
-                    rescale=rescale, schedule=schedule, shift=shift)
-                scores = _np(res.delta).copy()
-                iters_vec = _np(res.iters).copy()
-                guarded = np.zeros(nE, bool)
-                if not _guard_scores(scores, step, dataset):
-                    guarded = ~np.isfinite(scores)
-                    scores[guarded] = worst
-                h = int(np.argmin(scores) if mode == "break"
-                        else np.argmax(scores))
+                    h = None  # stale would-be winner: rescore everything
+            if h is None:
+                scores, iters_vec = _score(F, E, score_kw)
+                h = rule.pick(scores, step, tally.dataset)
+            # scores the pick sent to worst persist as NaN: they re-enter
+            # the refresh set next step instead of staying excluded until
+            # the next full rescore
             scores_all[:nE] = scores
-            # guarded entries persist as NaN: they re-enter the refresh set
-            # next step instead of staying excluded until the next full
-            # rescore
-            scores_all[:nE][guarded] = np.nan
+            scores_all[:nE][~np.isfinite(scores)] = np.nan
             iters_all[:nE] = iters_vec
-            have_scores = True
-            i, j = int(E[h, 0]), int(E[h, 1])
-            chosen.append((i, j))
-            deltas.append(float(scores[h]))
-            iters.append(int(iters_vec[h]))
-            rob += float(scores[h])
-            F.set_edge(i, j, 0.0 if mode == "break" else 1.0 / rescale)
-            last_edit = (i, j)
-            # drop the chosen edge from the search space
-            # (greedy_krylov.m:68-71)
-            keep = ~((top[:, 0] == i) & (top[:, 1] == j))
-            top = top[keep]
-            scores_all = scores_all[keep]
-            iters_all = iters_all[keep]
-            times.append(time.perf_counter() - t_step)
-        if checkpoint is not None:
-            checkpoint.save(dataset, step + 1, chosen, rob,
-                            extra={"deltas": deltas, "iters": iters,
-                                   "times": times})
-    if checkpoint is not None:
-        checkpoint.clear()
-    return _result(F, chosen, rob, deltas, iters, times)
+            last_edit = E[h]
+            F.set_edge(int(E[h, 0]), int(E[h, 1]), rule.commit)
+            keep = tally.record(E[h], scores[h], iters_vec[h],
+                                time.perf_counter() - t_step)
+            scores_all, iters_all = scores_all[keep], iters_all[keep]
+        tally.save()
+    return tally.finish(F)

@@ -31,6 +31,9 @@ from krylov_robustness_tpu.ops.sparse import CooMatrix
 from krylov_robustness_tpu.optimize.greedy import (
     greedy_krylov as jax_greedy_krylov,
 )
+from krylov_robustness_tpu.optimize.greedy import (
+    krylov_miobi as jax_krylov_miobi,
+)
 from test_greedy import brute_force_greedy, connected_random_graph
 
 # one intra-op thread: the suite runs in several processes at once
@@ -184,13 +187,16 @@ class _MemoryCheckpoint:
         self.cleared = True
 
 
-@pytest.mark.parametrize("fused_steps", [0, 3])
-@pytest.mark.parametrize("mode", ["break", "make"])
-def test_checkpoint_resume(graph, mode, fused_steps):
+@pytest.mark.parametrize("backend,mode,fused_steps", [
+    *(pytest.param("bsr", m, f, id=f"{m}-{f}")
+      for f in (0, 3) for m in ("break", "make")),
+    ("coo", "break", 0), ("coo", "make", 0), ("banded", "break", 0),
+])
+def test_checkpoint_resume(graph, backend, mode, fused_steps):
     """Interrupted after 2 steps and resumed from the checkpoint, the sweep
-    equals an uninterrupted one."""
+    equals an uninterrupted one, on every single-device operator."""
     A, c, _ = graph
-    kw = dict(order="min", tol=1e-8, mode=mode, backend="bsr",
+    kw = dict(order="min", tol=1e-8, mode=mode, backend=backend,
               fused_steps=fused_steps, dtype=torch.float64, device="cpu")
     full = greedy_krylov(A, 5, 20, c, **kw)
     ck = _MemoryCheckpoint()
@@ -216,6 +222,52 @@ def test_krylov_miobi_matches_bruteforce(mode):
     res = krylov_miobi(A, k, E=E, mode=mode, tol=1e-8, device="cpu")
     _, total_bf, _ = brute_force_greedy(Ad, k, mode)
     np.testing.assert_allclose(res.rob_variation, total_bf, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode,backend,every", [
+    ("break", "coo", 4), ("make", "coo", 4), ("break", "bsr", 3),
+    ("make", "bsr", 3),
+])
+def test_rescore_every_matches_jax(graph, mode, backend, every):
+    """Candidate-score reuse (``rescore_every`` > 1) against the JAX
+    package's, with tests/test_greedy.py:298-360's settings. f64: identical
+    edges, rob_variation to rtol 1e-10, identical A_new."""
+    A, c, _ = graph
+    k = 8 if backend == "coo" else 6
+    kw = dict(order="min", tol=1e-8, mode=mode, backend=backend,
+              rescore_every=every, rescore_frac=0.2)
+    rj = jax_greedy_krylov(A, k, 30, c, **kw)
+    rt = greedy_krylov(A, k, 30, c, dtype=torch.float64, device="cpu", **kw)
+    np.testing.assert_array_equal(rt.edges, rj.edges)
+    np.testing.assert_allclose(rt.rob_variation, rj.rob_variation,
+                               rtol=1e-10)
+    assert (rt.A_new != rj.A_new).nnz == 0
+
+
+@pytest.mark.parametrize("mode", ["break", "make"])
+def test_krylov_miobi_matches_jax(graph, mode):
+    """krylov_miobi above the dense cutoff (n = 150, the host-eigh lane)
+    against the JAX package's: every edge in break mode, the 40 most
+    central missing edges in make mode. f64: identical edges, per-step Δ to
+    rtol 1e-10, identical A_new."""
+    A, c, _ = graph
+    E = find_top_missing_edges(A, c, 40, "min") if mode == "make" else None
+    kw = dict(E=E, mode=mode, tol=1e-8)
+    rj = jax_krylov_miobi(A, 3, **kw)
+    rt = krylov_miobi(A, 3, device="cpu", **kw)
+    np.testing.assert_array_equal(rt.edges, rj.edges)
+    np.testing.assert_allclose(rt.per_step_delta, rj.per_step_delta,
+                               rtol=1e-10)
+    assert (rt.A_new != rj.A_new).nnz == 0
+
+
+@pytest.mark.parametrize("fn", [greedy_krylov, krylov_miobi])
+def test_unknown_mode_raises(graph, fn):
+    """A mode other than 'break' or 'make' is rejected before any work."""
+    A, c, _ = graph
+    args = (A, 2, 20, c) if fn is greedy_krylov else (A, 2)
+    with pytest.raises(ValueError, match="mode"):
+        fn(*args, mode="add", device="cpu")
 
 
 def test_unported_backends_and_devices_raise(graph):
