@@ -39,7 +39,14 @@ Phases, each of which raises on failure (exit code 1):
    against the f64 recurrence (h, beta, loss of orthogonality); CUDA-event
    times of the chain and the einsum step beside the least time (four blocks
    at 3.35 TB/s); then ``krylov.steps_kernel`` equals ``krylov.steps_run``
-   over a scoring call on each graph and a weighted-width call;
+   over the scoring call of the first step of ``road.break_q250`` and of
+   ``hub.break_q250_perstep`` (the cells' graphs, candidates, σ and
+   tolerance) and a weighted-width call; on those scoring calls
+   ``krylov.steps_run`` equals ``krylov.steps_used`` (each round runs for
+   the candidates not yet accepted: the carry shrinks on road, and on the
+   hub every candidate is accepted at m = 12 with nothing dropped), and Δ
+   of every candidate lies within the cell's ``delta_gap`` limit of the
+   benchmark's f64 plain reference;
 3c. spectra (``ops/banded_sturm.py``, ``csrc/banded_sturm.cu``): the
    Sturm kernel on 100-step f32 recurrences at the main path's shapes (road
    break at Q = 250 and 50, hub break at b = 520, hub make's positive B) at
@@ -502,7 +509,7 @@ def phase_flat_fallback(dev, H) -> None:
 MGS_WIDTHS = (("road", 250), ("road", 50), ("hub", 260))
 MGS_WIDE = ((1, 5), (3, 8), (1, 20), (1, 60))  # (batch, bs) on the road graph
 MGS_TIMES, MGS_FLOOR = 4.0, 64.0
-MGS_STEPS = 20  # the host-eigh scorer's speculated steps
+MGS_STEPS = 20  # the default schedule's first three rounds
 # w = vp·C + vc·D + δ·Z: the first MGS pass cancels all but δ of w, so
 # rounding leaves about eps/δ of [vp, vc] in its result, which only the
 # second pass removes
@@ -746,9 +753,13 @@ def phase_block_mgs(dev, graphs) -> dict:
     deflate, members that break down fully; identical reruns; a
     MGS_STEPS-step recurrence through each chain; per-step times; then
     krylov.steps_kernel against krylov.steps_run, and the chain's launches,
-    over a scoring call on each graph and a weighted-width call."""
+    over a scoring call on each graph and a weighted-width call; on the
+    scoring calls the rounds' carry widths, steps run against steps used,
+    the members dropped, and Δ against the f64 plain reference."""
+    from benchmark.reference.greedy import delta_trace_exp
     from krylov_robustness_torch.ops import block_mgs as bm
     from krylov_robustness_torch.ops.sparse import CooMatrix
+    from krylov_robustness_torch.updates import trace_update as tu
     from krylov_robustness_torch.updates.trace_update import (
         trace_fun_update_batched,
         trace_fun_update_edges,
@@ -828,22 +839,45 @@ def phase_block_mgs(dev, graphs) -> dict:
 
     def grew_over(fn):
         keys = ("krylov.steps_kernel", "krylov.steps_run",
-                "krylov.launches.MGS")
+                "krylov.launches.MGS", "krylov.steps_used",
+                "scorer.members_dropped")
         before = tracing.counters()
-        fn()
+        out.append(fn())
         after = tracing.counters()
         return {k: after.get(k, 0) - before.get(k, 0) for k in keys}
 
-    for name in ("road", "hub"):
-        A = graphs[name]
-        C = sp.coo_matrix(sp.triu(A, 1))
-        edges = np.stack([C.row, C.col], axis=1)[:250]
+    out = []
+    cont = tu.lanczos_continue
+    for cell in ("road.break_q250", "hub.break_q250_perstep"):
+        A, edges, sigma, tol, limit = cell_first_step(cell)
         op = CooMatrix.from_scipy(A, dtype=torch.float32, device=dev)
-        grew = grew_over(lambda: trace_fun_update_edges(
-            op, edges, sign=-1.0, tol=1e-3))
-        print(f"[block_mgs] scoring call on {name}, 250 edges: {grew}")
+        rounds = []
+
+        def record(A, state, steps, *a, **kw):
+            rounds.append((state.alive.shape[0], steps))
+            return cont(A, state, steps, *a, **kw)
+
+        with mock.patch.object(tu, "lanczos_continue", record):
+            grew = grew_over(lambda: trace_fun_update_edges(
+                op, edges, sign=-1.0, tol=tol, shift=sigma))
+        ref, _ = delta_trace_exp(A, edges, sign=-1.0, shift=sigma,
+                                 device=dev)
+        gap = float(np.abs(out[-1].delta.numpy() - ref).max()) / \
+            abs(float(ref.min()))
+        dropped = grew["scorer.members_dropped"]
+        print(f"[block_mgs] scoring call of {cell}'s first step, "
+              f"{len(edges)} edges: {grew}; rounds (carry width, steps) "
+              f"{rounds}; Δ gap to the f64 reference {gap:.3e} (limit "
+              f"{limit:g})")
         check(grew["krylov.steps_kernel"] == grew["krylov.steps_run"] > 0,
-              f"block_mgs: a step on {name} did not take the kernel: {grew}")
+              f"block_mgs: a step on {cell} did not take the kernel: {grew}")
+        check(grew["krylov.steps_run"] == grew["krylov.steps_used"],
+              f"scorer: {cell} ran steps no lag test read: {grew}")
+        check(dropped > 0 if cell.startswith("road") else dropped == 0,
+              f"scorer: {cell} dropped {dropped} members at round "
+              f"boundaries, rounds {rounds}")
+        check(gap <= limit, f"scorer: Δ on {cell} {gap:.3e} from the f64 "
+              f"reference, beyond the cell's limit {limit:g}")
     op = CooMatrix.from_scipy(road, dtype=torch.float64, device=dev)
     U = torch.as_tensor(mgs_blocks(n, 1, 60), dtype=torch.float64,
                         device=dev)
@@ -894,6 +928,28 @@ def sturm_least_ms(n_act: int, m: int, m_lag: int, bs: int = 2) -> float:
     (two of m·bs columns, two of m_lag·bs) of each candidate."""
     ops = 2 * sturm_ops(m * bs, bs) + 2 * sturm_ops(m_lag * bs, bs)
     return n_act * ops / F64_RATE * 1e3
+
+
+def cell_first_step(workload: str):
+    """(graph, candidates, σ, tolerance, ``delta_gap`` limit) of the first
+    greedy step of a benchmark cell at structure seed 0, as
+    ``benchmark/drivers/greedy.py`` makes them: the preprocessed stand-in,
+    its first Q 'min' edges, the f32 σ shift and tolerance."""
+    import importlib
+
+    from benchmark.generators import protocol_inputs, run_graph
+    from benchmark.harness import resolve
+    from benchmark.reference import top_edges_min
+
+    _, config, mix, _, _ = resolve(workload)
+    generator = importlib.import_module(
+        f"benchmark.generators.{config['generator']}")
+    A = run_graph(config, generator, 0)
+    lam, c = protocol_inputs(A)
+    sigma = lam if mix["hub_shift"] and lam > 20.0 else 0.0
+    tol = mix["tol"] * float(np.exp(lam - sigma))
+    return (A, top_edges_min(A, c, mix["Q"]), sigma, tol,
+            mix["limits"]["delta_gap"])
 
 
 def sturm_edges(A, count: int, sign: float):
@@ -1002,8 +1058,8 @@ def phase_spectra(dev, graphs) -> dict:
     schedule (M = 12 … 200), converged candidates left out from the second
     round on, members dead on entry and members broken down (lucky) at
     step 5: held against host LAPACK (every round) and the plain version on
-    the card (three rounds of the first case, the speculated last round of
-    the others), two launches giving identical bits, a NaN that poisons its
+    the card (three rounds of the first case, the third round of the
+    others), two launches giving identical bits, a NaN that poisons its
     member's matrices only; the time a round beside its least time (the
     FP64 pipes' rate), the plain version's and LAPACK's; then, over a
     scoring call on each graph, ``spectra.members_kernel`` equals 4 × the
@@ -1076,7 +1132,7 @@ def phase_spectra(dev, graphs) -> dict:
                 line += (f"; {ms:.4f} ms a round, least {least:.4f} ms "
                          f"({100 * least / ms:.1f}%)")
             print(line)
-        if case == 0:  # every candidate at the speculated rounds, timed
+        if case == 0:  # every candidate at rounds 1 and 3, timed
             every = torch.arange(batch, dtype=torch.int32, device=dev)
             for m in (6, 20):
                 ms = cuda_ms(lambda: bst.spectra_cuda(h, beta, Cm, every, m,

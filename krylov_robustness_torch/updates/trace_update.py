@@ -37,6 +37,7 @@ from ..funm.dense import (
 from ..funm.scalar import get_fun
 from ..krylov.lanczos import (
     LanczosBlocks,
+    LanczosState,
     assemble_tridiag,
     lanczos_continue,
     lanczos_start,
@@ -47,8 +48,7 @@ from ..utils import tracing
 DEFAULT_SCHEDULE = (6, 6, 8, 12, 20, 28, 20)  # cumulative 100 = reference max it
 DENSE_N_CUTOFF = 130  # reference trace_fun_update.m:37
 # rounds per phase of the phase lane (the first phase covers the common
-# convergence range; later phases run only for stragglers); the host-eigh
-# lane speculates the first phase's rounds in one go
+# convergence range; later phases run only for stragglers)
 DEFAULT_PHASES = (3, 2, 2)
 
 # Ceiling for one scoring call, in candidate·row cells (the Lanczos carry and
@@ -138,8 +138,8 @@ def _eigvals_banded_batch(h: torch.Tensor, beta: torch.Tensor,
                 np.sort(eig[:, :M], axis=1), np.sort(eig[:, M:2 * M], axis=1))
     tracing.count("spectra.members_host", 4 * len(act))
     with tracing.span("spectra.band", len(act), M):
-        band_t, band_g = _band_from_blocks(h.numpy()[:, act],
-                                           beta.numpy()[:, act],
+        band_t, band_g = _band_from_blocks(h[:m].numpy()[:, act],
+                                           beta[:m].numpy()[:, act],
                                            Cm.numpy()[act], m, bs)
     return (_eigvals_lapack(band_t[:, :, :ML], pool),
             _eigvals_lapack(band_g[:, :, :ML], pool),
@@ -283,34 +283,39 @@ def _trace_update_phases(A, U0, B, fun, tol, schedule, lag, phases,
     return TraceUpdateResult(delta=delta, iters=iters, converged=converged)
 
 
+def _batch_multiple(A) -> int:
+    """The multiple of which an operator takes its batch: the size of the
+    'cands' mesh axis its product shards columns over
+    (parallel/spmm_sharded.py), else 1."""
+    ba = getattr(A, "batch_axis", None)
+    return int(A.mesh.shape[ba]) if ba else 1
+
+
 def _trace_update_host_eigh(A, U0, B, fun, tol, schedule, lag,
-                            shift: float = 0.0, spec_rounds: int | None = None):
-    """Device recurrence, round-boundary spectra, host bookkeeping. The
-    device speculates the first ``spec_rounds`` schedule rounds in one go;
-    if stragglers outlive them, the carried end state is extended by exactly
-    each later round's missing steps (the forward blocks do not depend on
-    convergence, so the result is bit-identical to a longer speculation).
-    At each round boundary the banded spectra of the stragglers only come
+                            shift: float = 0.0):
+    """Device recurrence round by round for the candidates still running,
+    round-boundary spectra, host bookkeeping. Every candidate runs the
+    first round; at each round boundary the spectra of the stragglers come
     from :func:`_eigvals_banded_batch` (on the card where
-    :func:`_spectra_on_card` holds, else on the host), and the host runs the
-    lag-d bookkeeping."""
-    batch = U0.shape[0]
-    bs = U0.shape[-1]
+    :func:`_spectra_on_card` holds, else on the host), the host runs the
+    lag-d bookkeeping, and the carry is cut down to the candidates not yet
+    accepted (padded with repeats of one of them to the operator's
+    :func:`_batch_multiple`): the next round's steps run for those only.
+    The blocks land in one buffer indexed by the original candidate, so
+    each round's spectra read what a full-width recurrence would give (a
+    member's steps do not depend on the others')."""
+    batch, _, bs = U0.shape
     dtype = U0.dtype
     total = int(sum(schedule))
-    spec = total if spec_rounds is None else int(sum(schedule[:spec_rounds]))
 
-    state0, R0 = lanczos_start(A, U0)
-    blocks, state_end = lanczos_continue(A, state0, spec)
-    on_card = _spectra_on_card(blocks.h)
-    h, beta = _for_spectra(blocks.h, on_card), _for_spectra(blocks.beta,
-                                                             on_card)
-    lucky = blocks.lucky_step.cpu().numpy()
-    alive0 = state0.alive.cpu().numpy()
-    R0_np = _to_host(R0)
-    have = spec
-    Cm = torch.from_numpy(np.einsum("bkl,blm,bpm->bkp", R0_np, _to_host(B),
-                                    R0_np)).to(h.device)
+    state, R0 = lanczos_start(A, U0)
+    alive0_d = state.alive
+    on_card = _spectra_on_card(U0)  # the recurrence's device and width
+    h = torch.zeros((total, batch, 2 * bs, bs),
+                    dtype=dtype if on_card else torch.float64,
+                    device=U0.device if on_card else "cpu")
+    beta = h.new_zeros((total, batch, bs, bs))
+    Cm = None
 
     delta = np.zeros((batch,), np.float64)
     iters = np.zeros((batch,), np.int32)
@@ -321,26 +326,45 @@ def _trace_update_host_eigh(A, U0, B, fun, tol, schedule, lag,
     # per candidate and return it when the tolerance is never met.
     best_err = np.full((batch,), np.inf)
     eps_m = torch.finfo(dtype).eps
+    mult = _batch_multiple(A)
+    members = np.arange(batch)  # the candidate of each carry column
+    k = batch  # carry columns that are not padding
+    cols = torch.arange(batch, device=h.device)  # members[:k], on h.device
     m_done = 0
     # the pool starts its threads at the first LAPACK call, so the card's
     # path starts none
     with concurrent.futures.ThreadPoolExecutor(
             max_workers=min(8, os.cpu_count() or 2)) as pool:
         for steps in schedule:
-            m_done += int(steps)
-            act = np.nonzero(~converged)[0]  # spectra only for stragglers
+            act = np.nonzero(~converged)[0]  # only the stragglers run on
             if len(act) == 0:
                 break
-            if m_done > have:
-                blocks2, state_end = lanczos_continue(A, state_end,
-                                                      m_done - have)
-                h = torch.cat([h, _for_spectra(blocks2.h, on_card)])
-                beta = torch.cat([beta, _for_spectra(blocks2.beta, on_card)])
-                # lucky_step is segment-relative: members that survived the
-                # first segment carry the continuation's offset value
-                lucky = np.where(lucky < have, lucky,
-                                 have + blocks2.lucky_step.cpu().numpy())
-                have = m_done
+            if len(act) < k:
+                pos = np.searchsorted(members[:k], act)
+                pos = np.concatenate([pos, np.repeat(pos[:1],
+                                                     -len(act) % mult)])
+                idx = torch.as_tensor(pos, device=state.alive.device)
+                state = LanczosState(
+                    v_prev=state.v_prev.index_select(1, idx),
+                    v_cur=state.v_cur.index_select(1, idx),
+                    alive=state.alive[idx])
+                tracing.count("scorer.members_dropped", k - len(act))
+                members, k = members[pos], len(act)
+                cols = torch.as_tensor(act, device=h.device)
+            blocks, state = lanczos_continue(A, state, int(steps))
+            # read after the spectra's wait, which it rides
+            lucky_seg = blocks.lucky_step[:k].to("cpu", non_blocking=True)
+            m0, m_done = m_done, m_done + int(steps)
+            hb = _for_spectra(blocks.h[:, :k], on_card)
+            bb = _for_spectra(blocks.beta[:, :k], on_card)
+            h[m0:m_done].index_copy_(1, cols, hb)
+            beta[m0:m_done].index_copy_(1, cols, bb)
+            if Cm is None:  # once the first round is queued
+                R0_np = _to_host(R0)
+                Cm = torch.from_numpy(np.einsum(
+                    "bkl,blm,bpm->bkp", R0_np, _to_host(B),
+                    R0_np)).to(h.device)
+                alive0 = alive0_d.cpu().numpy()
             t_lag, g_lag, t_now, g_now = _eigvals_banded_batch(
                 h, beta, Cm, act, m_done, m_done - lag, pool)
             x_lag = _trace_fun_difference_np(t_lag, g_lag, fun.name,
@@ -348,7 +372,8 @@ def _trace_update_host_eigh(A, U0, B, fun, tol, schedule, lag,
             x_now = _trace_fun_difference_np(t_now, g_now, fun.name,
                                              shift=shift)
             err = np.abs(x_now - x_lag)
-            dead = (~alive0 | (lucky < m_done))[act]
+            # a member in the carry had not broken down before this round
+            dead = ~alive0[act] | (lucky_seg.numpy() < steps)
             # dtype-aware floor: an f32 recurrence cannot resolve below
             # ~32 eps relative
             tol_eff = np.maximum(tol, 32.0 * eps_m * np.abs(x_now))
@@ -360,8 +385,6 @@ def _trace_update_host_eigh(A, U0, B, fun, tol, schedule, lag,
             best_err[act] = np.minimum(best_err[act], err)
             converged[act] = newly
             used[act] = m_done  # accepted here, or still running
-            if converged.all():
-                break
     tracing.count("krylov.steps_used", int(used.sum()))
     return TraceUpdateResult(
         delta=torch.from_numpy(delta).to(dtype),
@@ -408,9 +431,8 @@ def trace_fun_update_batched(
     if not host_eigh:
         return _trace_update_phases(A, U0, B, fun, tol, schedule, lag,
                                     phases, shift=shift)
-    spec_rounds = int(phases[0]) if len(phases) else None
     return _trace_update_host_eigh(A, U0, B, fun, tol, schedule, lag,
-                                   shift=shift, spec_rounds=spec_rounds)
+                                   shift=shift)
 
 
 def trace_fun_update_edges(
@@ -443,8 +465,7 @@ def _score_edges(A, edges: np.ndarray, sign: float, fun, tol: float,
     # an operator whose product shards its columns over a 'cands' mesh axis
     # (parallel/spmm_sharded.py) needs the batch divisible by that axis: pad
     # with a repeated edge and slice the results back
-    ba = getattr(A, "batch_axis", None)
-    pad_mult = int(A.mesh.shape[ba]) if ba else 1
+    pad_mult = _batch_multiple(A)
     if batch % pad_mult:
         padded = -(-batch // pad_mult) * pad_mult
         r = _score_edges(

@@ -35,8 +35,8 @@ update, unlocked: the port never counts from a worker thread);
 already holds on the host: none adds a device synchronisation or a copy.
 
 - ``spmm.launches.K1`` … ``K4``: launches of each hand-written kernel;
-- ``krylov.steps_run``: candidate block steps the device ran (batch ×
-  steps of every ``lanczos_continue``);
+- ``krylov.steps_run``: candidate block steps the device ran (the
+  carry's width × steps of every ``lanczos_continue``);
 - ``krylov.steps_kernel``: of the steps run, those that went through the
   block step's kernel chain (``ops/block_mgs.py``), in the same units;
 - ``krylov.steps_used``: of the steps run, those up to the round at which
@@ -44,6 +44,9 @@ already holds on the host: none adds a device synchronisation or a copy.
   round);
   the phase lane and the fused blocks keep their acceptance on the device
   and add nothing here;
+- ``scorer.members_dropped``: candidates the host-eigh scorer removed from
+  the Lanczos carry at round boundaries, once the lag test accepted them
+  (the next round's steps run for the others only);
 - ``krylov.launches.MGS``: the kernel launches of the block step's chain
   (7 a step of its narrow chain, 9 of its wide one);
 - ``spectra.members_kernel``, ``spectra.members_host``: the candidate

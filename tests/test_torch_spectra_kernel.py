@@ -280,7 +280,7 @@ def _score(monkeypatch, card: bool):
             "spectra.launches.sturm")
     before = tracing.counters()
     r = tu._trace_update_host_eigh(op, U0, B, get_fun("exp"), tol,
-                                   (6, 6, 8, 12), lag=2, spec_rounds=1)
+                                   (6, 6, 8, 12), lag=2)
     after = tracing.counters()
     return r, {k: after.get(k, 0) - before.get(k, 0) for k in keys}, rounds
 

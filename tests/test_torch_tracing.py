@@ -186,9 +186,11 @@ def test_sturm_span_carries_batch_and_order():
 
 @pytest.mark.parametrize("batch,cells", [(20, None), (70, 64 * N)])
 def test_krylov_step_counters(graph, monkeypatch, batch, cells):
-    """steps_run adds batch × steps of every ``lanczos_continue`` (chunk
-    padding included: 70 candidates in two chunks of 64); steps_used adds,
-    for each candidate, the steps to its acceptance, never more."""
+    """steps_run adds the carry's width × steps of every
+    ``lanczos_continue`` (chunk padding included: 70 candidates in two
+    chunks of 64); steps_used adds, for each candidate, the steps to its
+    acceptance, never more; as each round runs for the candidates not yet
+    accepted, the two are equal."""
     A, c, tol = graph
     if cells is not None:
         monkeypatch.setattr(trace_update, "MAX_SCORE_CELLS", cells)
@@ -212,6 +214,7 @@ def test_krylov_step_counters(graph, monkeypatch, batch, cells):
     used = after["krylov.steps_used"] - before.get("krylov.steps_used", 0)
     assert run == sum(calls) > 0
     assert 0 < used <= run
+    assert used == run  # each round runs for the unaccepted only
     assert bool(r.converged.all())
     if cells is None:  # accepted at the round of its iterate
         assert used == int(r.iters.sum())
