@@ -26,7 +26,10 @@ Phases, each of which raises on failure (exit code 1):
    K4 at b = 1, 100, 250, 500, 512 in f32 and 512 in f64, on the road
    graph; K2 f32 on the hub graph also on a second, independently drawn x);
    the hub graph's flat blocks exceed their budget, so
-   ``make_bsr_operator`` falls back to COO there;
+   ``make_bsr_operator`` falls back to COO there; the super-tile operator
+   on the benchmark's soc-Epinions1-scale stand-in, whose tiles would take
+   ~9 GB, holds its CSR-order values alone, and one K1 product at b = 500
+   is held against ``coo_spmm``;
 3b. block step (``ops/block_mgs.py``, ``csrc/block_mgs.cu``): the kernel
    chains against the einsum step and against that step in f64, in f32 and
    f64, the narrow chain at the main paths' widths (b = 500 and 100 on the
@@ -114,9 +117,9 @@ Phases, each of which raises on failure (exit code 1):
    (≤ 1e-6), ``EllMatrix @ x`` on the card against scipy;
 14. replay: copies of the inputs of the last launch of each kernel at each
    shape of phases 4-8 and 10 (outside the bench's timed lanes), rerun
-   through the kernel and its plain version (for K1, K2 and K4 over the
-   tiles or blocks that their row index implies, for K3 over its ELL
-   tables).
+   through the kernel and its plain version (for K1 and K2 over the same
+   row index and values, for K4 over the blocks that its row index implies,
+   for K3 over its ELL tables).
 
 Each path (4-5, 6, 7, 8, 9, 10, 11) runs with every launch count set to 0
 just before it and read just after (``MGS``: the launches of the block
@@ -358,7 +361,7 @@ def phase_kernels(dev, graphs) -> dict:
                                      f"{name} {label} b={b}")
                 st = timed_case(op, Ap, x, unit, diff)
                 print(f"[kernels] {name} {label}: n={n} nnz={nnz} b={b} "
-                      f"tiles={op.ntiles} ("
+                      f"values {op.storage_bytes() / 1e6:.2f} MB ("
                       f"{gathers(nnz, b, x.element_size(), st['ms'])}) "
                       f"kernel {st['ms']:.4f} ms "
                       f"({nnz * b / (st['ms'] * 1e-3) / 1e9:.2f} Gnnz·b/s) "
@@ -494,6 +497,55 @@ def phase_flat_fallback(dev, H) -> None:
           f"the COO fallback")
     check(np.array_equal(perm, np.arange(H.shape[0])),
           "hub graph: the COO fallback is not in the identity order")
+
+
+def phase_epinions_operator(dev) -> None:
+    """The super-tile operator on the benchmark's soc-Epinions1-scale
+    stand-in (structure seed 0, RCM-ordered): its super-tiles would take
+    ~9 GB in bf16, its CSR-order values and index take a few MB; one K1
+    product at the cell's b = 500 held against ``coo_spmm`` in f32."""
+    import importlib
+
+    from benchmark.generators import run_graph
+    from benchmark.harness import resolve
+    from krylov_robustness_torch.ops.banded_spmm import rcm_permutation
+    from krylov_robustness_torch.ops.bsr_super import (
+        TILE_C,
+        TILE_R,
+        SuperBsrOperator,
+        super_tile_count,
+    )
+    from krylov_robustness_torch.ops.sparse import CooMatrix, coo_spmm
+    from krylov_robustness_torch.utils.tracing import tensor_bytes
+
+    config = resolve("epinions.break_q250_perstep")[1]
+    A = run_graph(config, importlib.import_module(
+        f"benchmark.generators.{config['generator']}"), 0)
+    perm = rcm_permutation(A)
+    Ap = sp.csr_matrix(A[perm, :][:, perm], dtype=np.float64)
+    tiles = super_tile_count(Ap) * TILE_R * TILE_C * 2
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    op = SuperBsrOperator(Ap, dtype=torch.float32, device=dev)
+    held = tensor_bytes(op)
+    coo = CooMatrix.from_scipy(Ap, dtype=torch.float32, device=dev)
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (Ap.shape[0], 500)), dtype=torch.float32, device=dev)
+    yk, yc = op @ x, coo_spmm(coo, x)
+    torch.cuda.synchronize(dev)
+    err = float((yk - yc).abs().max() / yc.abs().max())
+    k1_ms, coo_ms = cuda_ms(lambda: op @ x), cuda_ms(lambda: coo_spmm(coo, x))
+    print(f"[kernels] epinions K1 {op.mode}: n={op.n} nnz={op.nnz} b=500 "
+          f"tiles would take {tiles / 1e9:.2f} GB, the operator holds "
+          f"{held / 1e6:.2f} MB; K1 {k1_ms:.4f} ms, coo_spmm {coo_ms:.4f} ms, "
+          f"rel err vs coo_spmm {err:.3e} (gate {GATES[op.mode]:.0e}); peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    check(op.mode == "bf16x2", f"epinions: mode {op.mode}")
+    check(held < 64 * 2**20 < tiles, f"epinions: the operator holds {held} "
+          f"bytes, its tiles {tiles}")
+    check(err <= GATES["bf16x2"], f"epinions K1 vs coo_spmm {err:.3e}")
+    del op, coo, x, yk, yc
+    torch.cuda.empty_cache()
 
 
 # The block step after the SpMM (ops/block_mgs.py). Its narrow chain at the
@@ -1252,16 +1304,16 @@ class MainPathCapture:
                                                for a in args[frozen:]))
 
     def __enter__(self):
-        def k1(row_ptr, cols, val_off, atiles, x, terms):
-            self._keep(("K1", f"bf16x{terms}", atiles.shape[0], *x.shape),
-                       (row_ptr, cols, val_off, atiles, x), frozen=3)
-            return self.k1(row_ptr, cols, val_off, atiles, x, terms)
+        def k1(row_ptr, cols, val_off, vals, x, terms):
+            self._keep(("K1", f"bf16x{terms}", vals.numel(), *x.shape),
+                       (row_ptr, cols, val_off, vals, x), frozen=3)
+            return self.k1(row_ptr, cols, val_off, vals, x, terms)
 
-        def k2(row_ptr, cols, val_off, atiles, x):
+        def k2(row_ptr, cols, val_off, vals, x):
             label = "f32" if x.dtype == torch.float32 else "f64"
-            self._keep(("K2", label, atiles.shape[0], *x.shape),
-                       (row_ptr, cols, val_off, atiles, x), frozen=3)
-            return self.k2(row_ptr, cols, val_off, atiles, x)
+            self._keep(("K2", label, vals.numel(), *x.shape),
+                       (row_ptr, cols, val_off, vals, x), frozen=3)
+            return self.k2(row_ptr, cols, val_off, vals, x)
 
         def k3(cols, vals, row_ptr, entry_cols, val_off, x):
             label = "f32" if x.dtype == torch.float32 else "f64"
@@ -1308,31 +1360,28 @@ class MainPathCapture:
                 yp = self.flat.bsr_spmm_plain(ablocks, cb, rb, x_pad)[:n]
                 where = f"{kernel} {label} blocks={size} n={n} b={b}"
             else:
-                row_ptr, cols, val_off, atiles, x = args
-                _, tile_r, tile_c = atiles.shape
-                n_pad = self.mod._n_pad(n, tile_r, tile_c)
-                sup, slab = self._owners(row_ptr, cols, val_off, atiles.shape)
+                row_ptr, cols, val_off, vals, x = args
                 if kernel == "K1":
                     terms = int(label[-1])
-                    yk = self.k1(row_ptr, cols, val_off, atiles, x, terms)
-                    yp = self.mod.tile_spmm_bf16_plain(atiles, slab, sup, x,
-                                                       n_pad, terms)
+                    yk = self.k1(row_ptr, cols, val_off, vals, x, terms)
+                    yp = self.mod.csr_spmm_bf16_plain(row_ptr, cols, val_off,
+                                                      vals, x, terms)
                 else:
-                    yk = self.k2(row_ptr, cols, val_off, atiles, x)
-                    yp = self.mod.tile_spmm_full_plain(atiles, slab, sup, x,
-                                                       n_pad)
-                where = f"{kernel} {label} tiles={size} n={n} b={b}"
+                    yk = self.k2(row_ptr, cols, val_off, vals, x)
+                    yp = self.mod.csr_spmm_full_plain(row_ptr, cols, val_off,
+                                                      vals, x)
+                where = f"{kernel} {label} values={size} n={n} b={b}"
             worst[kernel] = max(worst.get(kernel, 0.0),
                                 self._check(where, label, x, yk, yp))
         return worst
 
     @staticmethod
     def _owners(row_ptr, cols, val_off, shape):
-        """(row group, column group) of each tile or block of ``shape``
-        (count, height, width), from a row index into its flattened storage:
-        every entry lies in its own. One without entries (the packing's
-        fill-in for an empty row group) is all zero, so it adds nothing
-        wherever it is placed: (0, 0)."""
+        """(row group, column group) of each block of ``shape`` (count,
+        height, width), from a row index into its flattened storage: every
+        entry lies in its own. One without entries (the packing's fill-in
+        for an empty row group) is all zero, so it adds nothing wherever it
+        is placed: (0, 0)."""
         count, height, width = shape
         n = row_ptr.numel() - 1
         rows = torch.repeat_interleave(
@@ -2408,6 +2457,7 @@ def run(dev, root: Path) -> int:
     stats = phase_kernels(dev, graphs)
     stats.update(phase_road_kernels(dev, graphs["road"]))
     phase_flat_fallback(dev, graphs["hub"])
+    phase_epinions_operator(dev)
     stats[("road", "MGS f32", 500)] = phase_block_mgs(dev, graphs)
     stats[("road", "Sturm f64", 250)] = phase_spectra(dev, graphs)
     with MainPathCapture() as capture:

@@ -6,8 +6,9 @@ SpMM throughput (nnz·b/s) on the largest paper transport network (Vermont
 when the data root has it, else a seeded road stand-in of its scale), RCM
 ordered, at the batch width the greedy scorer consumes (b = 512), for four
 lanes: the plain COO SpMM (``coo``), K4 flat 128 × 128 BSR in f32
-(``flat_f32``) and K1 super-tiles with x split into two or three bf16 terms
-(``super_bf16x2_512x256``, ``super_bf16x3_512x256``). Each lane runs a chain
+(``flat_f32``) and K1, the super-tile operator's kernel over its CSR-order
+bf16 values, with x split into two or three bf16 terms (``super_bf16x2``,
+``super_bf16x3``). Each lane runs a chain
 of 50 products (each the previous output times 1/‖A‖∞) once to warm up, then
 three times under CUDA events; its time is the best chain over 50. The best
 lane whose relative error against the f64 host product is under 1e-5 gives
@@ -172,11 +173,11 @@ def card() -> str:
 # -- SpMM lanes --------------------------------------------------------------
 # the tensors each operator's SpMM reads besides x, its values first. COO
 # reads its nnz values whole; the row gathers (K1–K4; K3 for b ≥ 32) read nnz
-# values out of their tile, ELL or block storage through val_off.
+# values out of their CSR-order, ELL or block storage through val_off.
 _TABLES = {"CooMatrix": ("vals", "rows", "cols"),
            "BandedEllOperator": ("vals", "_row_ptr", "_cols", "_val_off"),
            "BsrOperator": ("ablocks", "row_ptr", "cols", "val_off"),
-           "SuperBsrOperator": ("atiles", "_row_ptr", "_cols", "_val_off")}
+           "SuperBsrOperator": ("vals", "_row_ptr", "_cols", "_val_off")}
 
 
 def table_bytes(op) -> int:
@@ -274,12 +275,12 @@ def spmm_lanes(A, b: int, iters: int, device) -> list[dict]:
         lanes += [
             ("flat_f32", "ffma",
              lambda: BsrOperator(Ap, dtype=torch.float32, device=dev)),
-            ("super_bf16x2_512x256", "ffma",
+            ("super_bf16x2", "ffma",
              lambda: SuperBsrOperator(Ap, dtype=torch.float32, device=dev,
-                                      mode="bf16x2", tile=(512, 256))),
-            ("super_bf16x3_512x256", "ffma",
+                                      mode="bf16x2")),
+            ("super_bf16x3", "ffma",
              lambda: SuperBsrOperator(Ap, dtype=torch.float32, device=dev,
-                                      mode="bf16x3", tile=(512, 256))),
+                                      mode="bf16x3")),
         ]
     x = torch.as_tensor(x0, device=dev)
     rows = []

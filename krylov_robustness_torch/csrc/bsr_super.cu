@@ -7,16 +7,15 @@
 //         sums) and <double, double, double, 1>
 //         <-  _kernel_f32 (:82, launched by _tile_spmm_f32 at :135)
 //
-// The (RCM-permuted) adjacency is packed into dense tile_r x tile_c
-// super-tiles (default 512 x 256), sorted by super-row; tile t covers rows
-// sup(t)*tile_r.. and columns slab[t]*tile_c... The tiles stay the only copy
-// of the values. Both kernels read them through a CSR row index of the
-// packing: row_ptr, cols, and val_off, the offset of each entry's value in
-// the flattened tiles. A warp walks the entries of a run of consecutive
-// rows, each lane owns 16 bytes of a column slice, and every entry is one
-// coalesced load of an x row slice (row_gather.cuh).
+// Both kernels read the (RCM-permuted) adjacency through a CSR row index:
+// row_ptr, cols, and val_off, the offset of each entry's value in a flat
+// value storage. The single-card operator (ops/bsr_super.py) stores its
+// values in CSR order, so val_off[e] = e; a row-sharded block reads its
+// flattened 512 x 256 super-tiles, the TPU packing. A warp walks the entries
+// of a run of consecutive rows, each lane owns 16 bytes of a column slice,
+// and every entry is one coalesced load of an x row slice (row_gather.cuh).
 //
-// K1: y (n, b) f32 = A x for bf16 tile values (0/+-1 adjacency is
+// K1: y (n, b) f32 = A x for bf16 values (0/+-1 adjacency is
 // bf16-exact) and f32 x split into `terms` bf16 parts, y = A x to ~2^-18 (2
 // terms) or ~2^-27 (3 terms) relative. x is split into its bf16 parts in
 // registers and each part's products accumulate in an f32 sum of their own.
@@ -67,18 +66,18 @@
 extern "C" {
 
 // K1: y (n, b) f32 = A x (n, b) f32 over the row index (row_ptr n + 1,
-// cols and val_off nnz, int32) into the flattened bf16 tiles, x split into
+// cols and val_off nnz, int32) into the flat bf16 values, x split into
 // `terms` bf16 parts (2 or 3).
 int krt_bsr_super_bf16(const void* row_ptr, const void* cols,
-                       const void* val_off, const void* atiles, const void* x,
+                       const void* val_off, const void* vals, const void* x,
                        void* y, int n, int b, int terms, void* stream) {
   switch (terms) {
     case 2:
       return row_gather::launch<__nv_bfloat16, float, 2>(
-          row_ptr, cols, val_off, atiles, x, y, n, b, stream);
+          row_ptr, cols, val_off, vals, x, y, n, b, stream);
     case 3:
       return row_gather::launch<__nv_bfloat16, float, 3>(
-          row_ptr, cols, val_off, atiles, x, y, n, b, stream);
+          row_ptr, cols, val_off, vals, x, y, n, b, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -88,22 +87,22 @@ int krt_bsr_super_bf16(const void* row_ptr, const void* cols,
 // K2F32Sum=float` builds the sequential f32 sum it replaced).
 using K2F32Sum = double;
 
-// K2 in f32: y (n, b) = A x (n, b) over the row index into the flattened f32
-// tiles, each sum in f64 (DFMA) and rounded to f32 once.
+// K2 in f32: y (n, b) = A x (n, b) over the row index into the flat f32
+// values, each sum in f64 (DFMA) and rounded to f32 once.
 int krt_bsr_super_f32(const void* row_ptr, const void* cols,
-                      const void* val_off, const void* atiles, const void* x,
+                      const void* val_off, const void* vals, const void* x,
                       void* y, int n, int b, void* stream) {
   return row_gather::launch<float, float, 1, K2F32Sum>(
-      row_ptr, cols, val_off, atiles, x, y, n, b, stream);
+      row_ptr, cols, val_off, vals, x, y, n, b, stream);
 }
 
-// K2 in f64: y (n, b) = A x (n, b) over the row index into the flattened f64
-// tiles, DFMA only.
+// K2 in f64: y (n, b) = A x (n, b) over the row index into the flat f64
+// values, DFMA only.
 int krt_bsr_super_f64(const void* row_ptr, const void* cols,
-                      const void* val_off, const void* atiles, const void* x,
+                      const void* val_off, const void* vals, const void* x,
                       void* y, int n, int b, void* stream) {
   return row_gather::launch<double, double, 1>(row_ptr, cols, val_off,
-                                               atiles, x, y, n, b, stream);
+                                               vals, x, y, n, b, stream);
 }
 
 }  // extern "C"

@@ -35,20 +35,19 @@ def coo_from_arrays(rows, cols, vals, n: int, nnz: int, device) -> CooMatrix:
         n=int(n), nnz=int(nnz))
 
 
-def super_bsr_from_arrays(atiles, slab, sup, start, entry_tile, entry_offset,
-                          entry_rc, n: int, n_pad: int, mode: str, dtype,
-                          device) -> SuperBsrOperator:
-    """``SuperBsrOperator`` over the JAX operator's packing. ``atiles`` is
-    converted to the storage dtype of ``mode`` (bf16 for ``bf16xN``, else
-    ``dtype``)."""
+def super_bsr_from_arrays(atiles, entry_tile, entry_offset, entry_rc,
+                          n: int, mode: str, dtype, device) -> SuperBsrOperator:
+    """``SuperBsrOperator`` over the values of the JAX operator's packing:
+    ``atiles`` is converted to the storage dtype of ``mode`` (bf16 for
+    ``bf16xN``, else ``dtype``) and its entries gathered into CSR order
+    through the entry maps."""
     dev = resolve_device(device)
     dtype = float_dtype(dtype)
     store = torch.bfloat16 if mode.startswith("bf16x") else dtype
     tiles = torch.as_tensor(np.array(atiles, np.float64), device=dev).to(
         store)
-    return SuperBsrOperator.from_packed(
-        tiles, (slab, sup, start), entry_tile, entry_offset, entry_rc, n,
-        n_pad, mode, dtype)
+    return SuperBsrOperator.from_packed(tiles, entry_tile, entry_offset,
+                                        entry_rc, n, mode, dtype)
 
 
 def bsr_from_arrays(ablocks, cb, rb, first, entry_block, entry_offset,

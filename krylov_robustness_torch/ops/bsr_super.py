@@ -1,18 +1,20 @@
 """Super-tile SpMM operator with hand-written Hopper kernels.
 
-Port of ``krylov_robustness_tpu/ops/pallas_bsr_super.py``. The (RCM-permuted)
-matrix is packed into dense ``tile_r × tile_c`` super-tiles (default
-512 × 256), one per (super-row, column-slab) pair that holds an entry, sorted
-by super-row; every super-row owns at least one tile so every y row is
-written. The packing (``atiles``, ``slab``/``sup``/``start``, the entry maps)
-equals the JAX package's.
+Port of ``krylov_robustness_tpu/ops/pallas_bsr_super.py``. The JAX package
+packs the (RCM-permuted) matrix into dense ``tile_r × tile_c`` super-tiles
+(default 512 × 256), one per (super-row, column-slab) pair that holds an
+entry; :func:`pack_bsr_super` and :func:`super_layout` reproduce that packing
+(``atiles``, ``slab``/``sup``/``start``, the entry maps) for the parity tests,
+the interop and the row-sharded operator (``parallel/spmm_sharded.py``).
 
-Two kernels in ``csrc/bsr_super.cu`` compute ``A @ x`` over that packing.
-Both are row gathers (``csrc/row_gather.cuh``) over a CSR row index of the
-packing (``row_ptr``, ``cols`` and ``val_off``, each entry's offset in the
-flattened tiles, built once by the operator): each entry's value is read out
-of the tiles, which stay the only copy of the values, and no fill is
-computed.
+Two kernels in ``csrc/bsr_super.cu`` compute ``A @ x``. Both are row gathers
+(``csrc/row_gather.cuh``) over a CSR row index (``row_ptr``, ``cols`` and
+``val_off``, each entry's offset in a flat value storage): no fill is
+computed. :class:`SuperBsrOperator` holds its values in one array in CSR
+order, so its ``val_off`` is each entry's own position and no tile is
+allocated: its storage is the nonzeros, whatever its tiles would have taken
+(a hub graph at soc-Epinions1's scale packs into ~9 GB of bf16 tiles for
+0.8 M values). A row-sharded block reads its flattened tiles.
 
 * K1 (``tile_spmm_bf16``) replaces ``_kernel_bf16`` — modes
   ``bf16x2``/``bf16x3``: A stored in bf16 (bf16-exact 0/±1 adjacency); each
@@ -22,11 +24,14 @@ computed.
   storage): one DFMA an entry into an f64 sum, never TF32; in f32 each sum is
   rounded to f32 once, at the store.
 
-Beside each kernel is its plain torch version (a batched tile product plus
-``index_add_`` by super-row). :meth:`SuperBsrOperator.matmul` runs the plain
-version for CPU tensors only; a CUDA tensor launches the kernel or raises.
-The kernels are built with ``nvcc`` at first use (:mod:`.cuda_build`) and
-bound with ``ctypes``.
+Beside each kernel are two plain torch versions: over the row index
+(``csr_spmm_*_plain``, a row gather with ``index_add_``, the operator's CPU
+path and the kernels' reference on the card) and over the tiles
+(``tile_spmm_*_plain``, a batched tile product, the row-sharded block's CPU
+path). :meth:`SuperBsrOperator.matmul` runs the plain version for CPU
+tensors only; a CUDA tensor launches the kernel or raises. The kernels are
+built with ``nvcc`` at first use (:mod:`.cuda_build`) and bound with
+``ctypes``.
 """
 
 from __future__ import annotations
@@ -163,7 +168,7 @@ def bf16_split(x: torch.Tensor, terms: int) -> torch.Tensor:
     return torch.cat(parts, dim=1)
 
 
-# -- plain versions (CPU path, and the kernels' on-card reference) ---------
+# -- plain versions over the tiles (the row-sharded block's CPU path) ------
 def _fold_rows(p, sup, m_pad: int, m: int):
     """The tile products ``p`` (ntile, tile_r, b) summed into y by super-row
     with ``index_add_``; rows [0, m) of the m_pad-row result."""
@@ -209,6 +214,41 @@ def tile_spmm_full_plain(atiles, slab, sup, x, n_pad: int,
                       n if m is None else m)
 
 
+def _entry_rows(row_ptr: torch.Tensor) -> torch.Tensor:
+    """The row of each entry of a CSR row index, in CSR order."""
+    counts = torch.diff(row_ptr).long()
+    return torch.repeat_interleave(
+        torch.arange(len(counts), device=row_ptr.device), counts)
+
+
+def csr_spmm_bf16_plain(row_ptr, cols, val_off, vals, x, terms: int):
+    """Plain twin of K1 over its own arguments: y (m, b) f32 = A @ x for f32
+    x (n_x, b), each entry's value ``vals.flatten()[val_off]`` times each
+    bf16 part of its x row, the products of a part summed by row in f32
+    (``index_add_``), then the parts' sums added, the high part's first."""
+    m, b = row_ptr.numel() - 1, x.shape[1]
+    v = vals.reshape(-1)[val_off.long()].float()[:, None]
+    xs = bf16_split(x, terms).float().index_select(0, cols.long())
+    y = torch.zeros((m, terms * b), dtype=torch.float32, device=x.device)
+    y.index_add_(0, _entry_rows(row_ptr), v * xs)
+    s = y[:, :b]
+    for k in range(1, terms):
+        s = s + y[:, k * b:(k + 1) * b]
+    return s
+
+
+def csr_spmm_full_plain(row_ptr, cols, val_off, vals, x):
+    """Plain twin of K2 over its own arguments: y (m, b) = A @ x for x
+    (n_x, b) in f32 or f64, each entry's product and each row's sum in f64,
+    rounded to x's dtype once."""
+    m, b = row_ptr.numel() - 1, x.shape[1]
+    v = vals.reshape(-1)[val_off.long()].double()[:, None]
+    y = torch.zeros((m, b), dtype=torch.float64, device=x.device)
+    y.index_add_(0, _entry_rows(row_ptr),
+                 v * x.double().index_select(0, cols.long()))
+    return y.to(x.dtype)
+
+
 # -- kernel binding ----------------------------------------------------------
 def _library() -> ctypes.CDLL:
     global _LIB
@@ -225,14 +265,15 @@ def _library() -> ctypes.CDLL:
     return _LIB
 
 
-def tile_spmm_bf16(row_ptr, cols, val_off, atiles, x, terms: int):
+def tile_spmm_bf16(row_ptr, cols, val_off, vals, x, terms: int):
     """K1: y (m, b) f32 = A @ x for f32 x (n_x, b), A's values gathered out
-    of the bf16 tiles ``atiles`` through the int32 row index (``row_ptr`` of
-    m + 1, ``cols`` and ``val_off`` of nnz, every column below n_x; see
+    of the bf16 storage ``vals`` (the operator's CSR-order values, or a
+    shard's tiles) through the int32 row index (``row_ptr`` of m + 1,
+    ``cols`` and ``val_off`` of nnz, every column below n_x; see
     :mod:`.row_gather`), x split into ``terms`` bf16 parts inside the kernel.
     m = n_x for the square operator; a shard's block of a row-sharded
     operator has its own rows (m) and reads local or gathered x (n_x)."""
-    m = row_gather.check_launch("K1", row_ptr, cols, val_off, atiles, x,
+    m = row_gather.check_launch("K1", row_ptr, cols, val_off, vals, x,
                                 torch.bfloat16, torch.float32)
     if terms not in (2, 3):
         raise ValueError(f"terms must be 2 or 3, got {terms}")
@@ -243,22 +284,22 @@ def tile_spmm_bf16(row_ptr, cols, val_off, atiles, x, terms: int):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.krt_bsr_super_bf16(
             row_ptr.data_ptr(), cols.data_ptr(), val_off.data_ptr(),
-            atiles.data_ptr(), x.data_ptr(), y.data_ptr(), m, b, terms,
+            vals.data_ptr(), x.data_ptr(), y.data_ptr(), m, b, terms,
             stream)
     cuda_build.raise_on(code, "krt_bsr_super_bf16")
     tracing.count("spmm.launches.K1")
     return y
 
 
-def tile_spmm_full(row_ptr, cols, val_off, atiles, x):
+def tile_spmm_full(row_ptr, cols, val_off, vals, x):
     """K2: y (m, b) = A @ x for x (n_x, b) in f32 or f64, A's values gathered
-    out of the tiles ``atiles`` (in x's dtype) through the int32 row index
+    out of the storage ``vals`` (in x's dtype) through the int32 row index
     (``row_ptr`` of m + 1, ``cols`` and ``val_off`` of nnz, every column
     below n_x; see :mod:`.row_gather`), one DFMA an entry into an f64 sum
     (in f32 rounded once at the store). m and n_x as for K1."""
     if x.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"K2 takes float32 or float64, got {x.dtype}")
-    m = row_gather.check_launch("K2", row_ptr, cols, val_off, atiles, x,
+    m = row_gather.check_launch("K2", row_ptr, cols, val_off, vals, x,
                                 x.dtype, x.dtype)
     b = x.shape[1]
     y = torch.empty((m, b), dtype=x.dtype, device=x.device)
@@ -268,7 +309,7 @@ def tile_spmm_full(row_ptr, cols, val_off, atiles, x):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(row_ptr.data_ptr(), cols.data_ptr(), val_off.data_ptr(),
-                  atiles.data_ptr(), x.data_ptr(), y.data_ptr(), m, b,
+                  vals.data_ptr(), x.data_ptr(), y.data_ptr(), m, b,
                   stream)
     cuda_build.raise_on(code, fn.__name__)
     tracing.count("spmm.launches.K2")  # f32 and f64
@@ -277,85 +318,76 @@ def tile_spmm_full(row_ptr, cols, val_off, atiles, x):
 
 # -- the operator ------------------------------------------------------------
 class SuperBsrOperator:
-    """Super-tile block-sparse SpMM operator with a frozen sparsity structure.
+    """SpMM operator over the super-tile kernels K1/K2, with a frozen
+    sparsity structure.
 
+    The values are one array ``vals`` on the device in the CSR order of the
+    matrix, in the storage dtype; K1 and K2 read it through the int32 row
+    index ``_row_ptr``, ``_cols``, ``_val_off`` (each entry's own position).
     ``matmul`` on (n, b) blocks or (n,) vectors; ``update_entry_values`` /
-    ``set_edge`` edit values of existing entries in place. mode ``f32`` runs
-    K2 in the compute dtype; ``bf16xN`` (N = 2, 3) stores A in bf16 (values
-    must be bf16-exact) and runs K1 with x split into N bf16 parts — ~2^-18
-    (N=2) / ~2^-27 (N=3) relative error. ``auto`` picks ``bf16x2`` for
-    bf16-exact values in f32 and ``f32`` otherwise.
+    ``set_edge`` edit values of existing entries in place (make mode's
+    candidate slots are explicit zeros). mode ``f32`` runs K2 in the compute
+    dtype; ``bf16xN`` (N = 2, 3) stores A in bf16 (values must be
+    bf16-exact) and runs K1 with x split into N bf16 parts — ~2^-18 (N=2) /
+    ~2^-27 (N=3) relative error. ``auto`` picks ``bf16x2`` for bf16-exact
+    values in f32 and ``f32`` otherwise.
     """
 
     # Plain (CPU) path only: batches wider than MAX_B run as column chunks,
-    # which bounds the tile products' scratch; results are identical. The
-    # kernels take any width.
+    # which bounds the gathered products' scratch; results are identical.
+    # The kernels take any width.
     MAX_B = 1024
 
     def __init__(self, A_scipy, *, dtype=torch.float32, device,
-                 mode: str = "auto", tile: tuple[int, int] = (TILE_R, TILE_C)):
+                 mode: str = "auto"):
         A = sp.csr_matrix(A_scipy)
         A.sort_indices()
         dtype = float_dtype(dtype)
         if mode == "auto":
             # bf16x2's ~2^-18 error equals the f32 trace-update convergence
             # floor (32·eps_f32, updates/trace_update.py), so for bf16-exact
-            # values it is accuracy-consistent with the f32 path. Exactness is
-            # checked on the stored values only (the fill is zero).
+            # values it is accuracy-consistent with the f32 path.
             vals = torch.as_tensor(A.data.astype(np.float64))
             exact = bool(torch.all(vals.to(torch.bfloat16).double() == vals))
             mode = "bf16x2" if (exact and dtype == torch.float32) else "f32"
         if mode not in MODES:
             raise ValueError(f"mode must be 'auto' or one of {MODES}")
         store = torch.bfloat16 if mode.startswith("bf16x") else dtype
-        atiles, meta, et, eo, n_pad = pack_bsr_super(
-            A, tile[0], tile[1], dtype=store, device=device)
+        vals = torch.as_tensor(A.data.astype(np.float64),
+                               device=resolve_device(device)).to(store)
         coo = A.tocoo()
-        self._setup(atiles, meta, et, eo,
-                    (coo.row.astype(np.int64), coo.col.astype(np.int64)),
-                    A.shape[0], n_pad, mode, dtype)
+        self._setup(vals, (coo.row.astype(np.int64),
+                           coo.col.astype(np.int64)), A.shape[0], mode, dtype)
 
     @classmethod
-    def from_packed(cls, atiles: torch.Tensor, meta, entry_tile, entry_offset,
-                    entry_rc, n: int, n_pad: int, mode: str, dtype):
-        """Operator over an existing packing (tiles already in their storage
-        dtype and on their device)."""
+    def from_packed(cls, atiles: torch.Tensor, entry_tile, entry_offset,
+                    entry_rc, n: int, mode: str, dtype):
+        """Operator over the values of an existing super-tile packing (tiles
+        already in their storage dtype and on their device; entry k, in CSR
+        order, at ``entry_offset[k]`` of tile ``entry_tile[k]``), gathered
+        into CSR order."""
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}")
+        dev = atiles.device
+        vals = atiles.reshape(atiles.shape[0], -1)[
+            torch.as_tensor(np.asarray(entry_tile, np.int64), device=dev),
+            torch.as_tensor(np.asarray(entry_offset, np.int64), device=dev)]
         obj = cls.__new__(cls)
-        obj._setup(atiles, tuple(np.array(m, np.int32) for m in meta),
-                   np.array(entry_tile, np.int64),
-                   np.array(entry_offset, np.int64),
-                   tuple(np.array(a, np.int64) for a in entry_rc),
-                   int(n), int(n_pad), mode, float_dtype(dtype))
+        obj._setup(vals, tuple(np.array(a, np.int64) for a in entry_rc),
+                   int(n), mode, float_dtype(dtype))
         return obj
 
-    def _setup(self, atiles, meta, entry_tile, entry_offset, entry_rc, n,
-               n_pad, mode, dtype):
-        _, tile_r, tile_c = atiles.shape
+    def _setup(self, vals, entry_rc, n, mode, dtype):
         self.n = n
-        self.nnz = len(entry_tile)
-        self.n_pad = n_pad
+        self.nnz = int(vals.numel())
         self.mode = mode
         self.dtype = dtype  # compute dtype of the products
-        self.atiles = atiles
-        self.meta = meta  # (slab, sup, start) int32, as packed
-        self._entry_tile = entry_tile
-        self._entry_offset = entry_offset
+        self.vals = vals
         self._entry_rc = entry_rc
         # CSR order ⇒ row-major keys ascending: (i, j) → entry by searchsorted
         self._entry_keys = entry_rc[0] * n + entry_rc[1]
-        slab, sup, _ = meta
-        dev = atiles.device
-        self._slab = torch.as_tensor(slab, device=dev)
-        self._sup = torch.as_tensor(sup, device=dev)
-        # K1's and K2's row index, in the operator's node order: the entries
-        # are in CSR order, and each reads its value at
-        # tile·tile_r·tile_c + offset of the flattened tiles (shared by
-        # with_tiles' operators)
         self._row_ptr, self._cols, self._val_off = row_gather.row_index(
-            entry_rc, entry_tile * (tile_r * tile_c) + entry_offset, n,
-            atiles.numel(), dev)
+            entry_rc, np.arange(self.nnz), n, self.nnz, vals.device)
 
     @property
     def shape(self):
@@ -363,35 +395,28 @@ class SuperBsrOperator:
 
     @property
     def device(self) -> torch.device:
-        return self.atiles.device
-
-    @property
-    def ntiles(self) -> int:
-        return int(self.atiles.shape[0])
+        return self.vals.device
 
     def storage_bytes(self) -> int:
-        return self.atiles.numel() * self.atiles.element_size()
+        return self.vals.numel() * self.vals.element_size()
 
-    def with_tiles(self, atiles: torch.Tensor) -> "SuperBsrOperator":
-        """The same operator over replacement tile storage (no copy); it
-        shares the packing and the row index."""
-        if atiles.shape != self.atiles.shape or atiles.dtype != self.atiles.dtype:
-            raise ValueError("replacement tiles must match shape and dtype")
+    def with_values(self, vals: torch.Tensor) -> "SuperBsrOperator":
+        """The same operator over replacement values (no copy); it shares
+        the row index."""
+        if vals.shape != self.vals.shape or vals.dtype != self.vals.dtype:
+            raise ValueError("replacement values must match shape and dtype")
         obj = object.__new__(type(self))
         obj.__dict__.update(self.__dict__)
-        obj.atiles = atiles
+        obj.vals = vals
         return obj
 
     # -- frozen-structure value edits ---------------------------------------
     def update_entry_values(self, entry_indices, values) -> None:
         """Set values of specific nnz entries (CSR order), in place."""
-        idx = np.asarray(entry_indices, np.int64)
-        dev = self.atiles.device
-        flat = self.atiles.view(self.atiles.shape[0], -1)
-        flat[torch.as_tensor(self._entry_tile[idx], device=dev),
-             torch.as_tensor(self._entry_offset[idx], device=dev)] = (
-            torch.as_tensor(np.asarray(values, np.float64), device=dev).to(
-                self.atiles.dtype))
+        dev = self.vals.device
+        self.vals[torch.as_tensor(np.asarray(entry_indices, np.int64),
+                                  device=dev)] = torch.as_tensor(
+            np.asarray(values, np.float64), device=dev).to(self.vals.dtype)
 
     def entry_index(self, i, j):
         """CSR-order entry index of (i, j); arrays give arrays."""
@@ -410,11 +435,7 @@ class SuperBsrOperator:
 
     def entry_values(self) -> np.ndarray:
         """Current values of all nnz entries in CSR order, as f32."""
-        dev = self.atiles.device
-        flat = self.atiles.view(self.atiles.shape[0], -1)
-        return flat[torch.as_tensor(self._entry_tile, device=dev),
-                    torch.as_tensor(self._entry_offset, device=dev)].to(
-            torch.float32).cpu().numpy()
+        return self.vals.to(torch.float32).cpu().numpy()
 
     # -- linear algebra ------------------------------------------------------
     def _terms(self) -> int:
@@ -424,16 +445,15 @@ class SuperBsrOperator:
         return torch.float32 if self._terms() else self.dtype
 
     def _plain(self, x: torch.Tensor) -> torch.Tensor:
+        index = (self._row_ptr, self._cols, self._val_off, self.vals, x)
         if self._terms():
-            return tile_spmm_bf16_plain(self.atiles, self._slab, self._sup, x,
-                                        self.n_pad, self._terms())
-        return tile_spmm_full_plain(self.atiles, self._slab, self._sup, x,
-                                    self.n_pad)
+            return csr_spmm_bf16_plain(*index, self._terms())
+        return csr_spmm_full_plain(*index)
 
     def _prepare(self, x: torch.Tensor) -> torch.Tensor:
-        if x.device != self.atiles.device:
+        if x.device != self.vals.device:
             raise ValueError(f"x is on {x.device}, the operator on "
-                             f"{self.atiles.device}")
+                             f"{self.vals.device}")
         if x.shape[0] != self.n:
             raise ValueError(f"x has {x.shape[0]} rows, A is {self.n}x{self.n}")
         return x.to(self._compute_dtype()).contiguous()
@@ -457,12 +477,9 @@ class SuperBsrOperator:
                 raise ValueError(f"unsupported device {x.device}")
             squeeze = x.ndim == 1
             xc = self._prepare(x[:, None] if squeeze else x)
-            if self._terms():
-                y = tile_spmm_bf16(self._row_ptr, self._cols, self._val_off,
-                                   self.atiles, xc, self._terms())
-            else:
-                y = tile_spmm_full(self._row_ptr, self._cols, self._val_off,
-                                   self.atiles, xc)
+            index = (self._row_ptr, self._cols, self._val_off, self.vals, xc)
+            y = tile_spmm_bf16(*index, self._terms()) if self._terms() \
+                else tile_spmm_full(*index)
             y = y.to(x.dtype)
             return y[:, 0] if squeeze else y
 

@@ -49,9 +49,9 @@ def coo_rebuild(op, vals):
     return dataclasses.replace(op, vals=vals)
 
 
-def bsr_rebuild(op, flat_vals):
-    """SuperBsrOperator over replacement tile storage (a view, no copy)."""
-    return op.with_tiles(flat_vals.view(op.atiles.shape))
+def bsr_rebuild(op, vals):
+    """SuperBsrOperator over replacement CSR-order values (no copy)."""
+    return op.with_values(vals)
 
 
 def sharded_bsr_rebuild(op, flat_vals):

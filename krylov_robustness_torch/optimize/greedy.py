@@ -33,11 +33,6 @@ from ..utils.device import float_dtype, require_full_f32_matmul, \
     resolve_device
 from ..utils.guards import check_finite
 
-# greedy tile-storage cap for the super-tile backend (bf16 tiles), kept at the
-# JAX package's value so backend decisions match it
-BSR_STORAGE_CAP = 768 * 1024 * 1024
-
-
 @dataclasses.dataclass(frozen=True)
 class _ModeRule:
     """What a sweep's mode decides: 'break' removes the edge of least
@@ -334,29 +329,25 @@ class _BandedAdapter(_Adapter):
 
 class _BsrAdapter(_BandedAdapter):
     """The same adapter over the super-tile operator, with the fused lane's
-    hooks (the banded operator has none, so it never runs fused blocks)."""
+    hooks (the banded operator has none, so it never runs fused blocks): a
+    slot is an entry's position in the operator's CSR-order values."""
 
-    # -- fused multi-step hooks: flat view over the tile storage ------------
     def fused_state(self):
-        return self.op, self.op.atiles.view(-1)
+        return self.op, self.op.vals
 
     @staticmethod
-    def fused_rebuild(op, flat_vals):
+    def fused_rebuild(op, vals):
         from .fused import bsr_rebuild
 
-        return bsr_rebuild(op, flat_vals)
+        return bsr_rebuild(op, vals)
 
     def fused_slots(self, E: np.ndarray) -> np.ndarray:
         E = np.asarray(E, np.int64).reshape(-1, 2)
-        tc = self.op.atiles.shape[1] * self.op.atiles.shape[2]
-        out = np.empty((len(E), 2), np.int64)
-        for c, (a, b) in enumerate(((0, 1), (1, 0))):
-            e = self.op.entry_index(E[:, a], E[:, b])
-            out[:, c] = self.op._entry_tile[e] * tc + self.op._entry_offset[e]
-        return out
+        return np.stack([self.op.entry_index(E[:, a], E[:, b])
+                         for a, b in ((0, 1), (1, 0))], axis=1)
 
-    def set_fused_vals(self, flat_vals):
-        self.op.atiles = flat_vals.view(self.op.atiles.shape)
+    def set_fused_vals(self, vals):
+        self.op.vals = vals
 
 
 class _Tally:
@@ -452,27 +443,23 @@ def choose_operator(A, top, Q: int, mode: str, backend: str,
                     device: torch.device):
     """The scored operator, as the JAX package chooses it
     (greedy.py:595-648), with "the device is CUDA" in place of "the backend
-    is the TPU": super tiles for ``backend='bsr'``, or for ``'auto'`` at
-    2Q ≥ 256, while the bf16 tile storage fits ``BSR_STORAGE_CAP``;
-    otherwise, in break mode only, the banded operator while the RCM band
-    fits (``banded_spmm.banded_fits``); otherwise COO. ``'coo'``, and
-    ``'auto'`` off CUDA, take COO. Allocates nothing on the device.
+    is the TPU" and without its cap on the tiles' bytes (the super-tile
+    operator holds its values in CSR order, so its storage is the
+    nonzeros): super tiles for ``backend='bsr'``, or for ``'auto'`` at
+    2Q ≥ 256; otherwise, in break mode only, the banded operator while the
+    RCM band fits (``banded_spmm.banded_fits``); otherwise COO. ``'coo'``,
+    and ``'auto'`` off CUDA, take COO. Allocates nothing on the device.
 
     Returns (kind, perm, A_aug): kind is 'bsr', 'banded' or 'coo'; A_aug is
     A with make mode's candidate slots (super tiles only)."""
     from ..ops.banded_spmm import banded_fits, rcm_permutation
-    from ..ops.bsr_super import TILE_C, TILE_R, super_tile_count
 
     adds = _ModeRule.of(mode).adds
     if backend == "coo" or (backend == "auto" and device.type != "cuda"):
         return "coo", None, None
     perm = rcm_permutation(A)
     if backend == "bsr" or (backend == "auto" and 2 * Q >= 256):
-        A_aug = _with_zero_slots(A, top if adds else None)
-        # bf16 tile storage (mode auto picks bf16x2 for 0/±1 adjacency)
-        if super_tile_count(A_aug, perm) * TILE_R * TILE_C * 2 \
-                <= BSR_STORAGE_CAP:
-            return "bsr", perm, A_aug
+        return "bsr", perm, _with_zero_slots(A, top if adds else None)
     if not adds and banded_fits(A, perm):
         return "banded", perm, None
     return "coo", None, None
@@ -562,6 +549,7 @@ def greedy_krylov(
     tracing.count("sweep.build_s", time.perf_counter() - t_build)
     # entries the operator holds beyond A's: make mode's candidate slots
     tracing.count("sweep.slots", F.operator.nnz - A.nnz)
+    tracing.count("spmm.operator_bytes", tracing.tensor_bytes(F.operator))
     sweep = tracing.count("sweep.builds")  # the sweep's id in the process
     score_kw = dict(sign=rule.sign, fun=fun, tol=tol, rescale=float(rescale),
                     schedule=schedule, shift=shift)

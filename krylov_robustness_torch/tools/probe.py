@@ -23,10 +23,7 @@ sets them (``UNROLL=8``, ``ROWS_PER_WARP=8,WARPS=2``, ``K2F32Sum=float``),
 each held against the plain version and timed with CUDA events in turns
 (every variant, then again in reverse order; the better time counts) beside
 cuSPARSE; then each variant's K2 f32 error on the hub graph at b = 500 on
-the smoke's second x. Then K1 on the
-hub graph with its values read from a compact copy in CSR order
-(``val_off[e] = e``) in place of the tiles: what the scattered value gather
-costs.
+the smoke's second x.
 
 ``weighted``: ``torch.profiler`` over one ``fun_and_grad`` of the smoke's
 Vermont-scale rewiring problem (``chip_smoke.vermont_problem``, f = sinh,
@@ -221,9 +218,8 @@ def probe_gather(smoke, dev, out: Path, variants) -> None:
             A, dtype=f64, device=dev), (512,)),
     }
 
-    def launch(name, kernel, op, x, compact=None):
-        """One product through variant ``name``'s entry of ``kernel``;
-        ``compact`` = (val_off, values) replaces the operator's own."""
+    def launch(name, kernel, op, x):
+        """One product through variant ``name``'s entry of ``kernel``."""
         y = torch.empty_like(x)
         stream = torch.cuda.current_stream(dev).cuda_stream
         if kernel == "K4":
@@ -231,8 +227,7 @@ def probe_gather(smoke, dev, out: Path, variants) -> None:
                                             op.ablocks)
         else:
             row_ptr, cols, val_off = op._row_ptr, op._cols, op._val_off
-            vals = op.vals if kernel == "K3" else op.atiles
-        val_off, vals = compact or (val_off, vals)
+            vals = op.vals
         dll, entry = libs[name][kernel]
         fn = getattr(dll, entry.format(f="f32" if x.dtype == f32 else "f64"))
         terms = (op._terms(),) if kernel == "K1" else ()
@@ -290,23 +285,6 @@ def probe_gather(smoke, dev, out: Path, variants) -> None:
                 f"gather hub K2 f32 b=500 second x: {errs['as-is']:.3e}")
     print("[gather] hub K2 f32 b=500 second x (seed 2): " + "; ".join(
         f"{name} err {err:.3e}" for name, err in errs.items()))
-    del op
-    op = cases["hub", "K1", "bf16x2"][0](graphs["hub"])
-    x = torch.as_tensor(x64["hub"][:, :500], device=dev, dtype=f32)
-    compact = (torch.arange(op.nnz, dtype=torch.int32, device=dev),
-               op.atiles.reshape(-1)[op._val_off.long()].contiguous())
-    smoke.check(torch.equal(launch("as-is", "K1", op, x, compact),
-                            launch("as-is", "K1", op, x)),
-                "gather: the compact values give another product")
-    t = {}
-    for kind in ("tiles", "compact", "compact", "tiles"):
-        ms = smoke.cuda_ms(lambda: launch(
-            "as-is", "K1", op, x, compact if kind == "compact" else None),
-            reps=15)
-        t[kind] = min(t.get(kind, ms), ms)
-    print(f"[gather] hub bf16x2 b=500, values read from the tiles "
-          f"{t['tiles']:.4f} ms, from a compact copy in CSR order "
-          f"{t['compact']:.4f} ms")
 
 
 def probe_weighted(smoke, dev, out: Path) -> None:

@@ -59,7 +59,11 @@ already holds on the host: none adds a device synchronisation or a copy.
 - ``sweep.candidates_s``: host seconds in ``kr:sweep.candidates``;
 - ``sweep.slots``: the entries a sweep's operator holds beyond the graph's,
   make mode's explicit-zero candidate slots (2·(Q + k) a make sweep, both
-  triangles of each candidate; 0 a break sweep).
+  triangles of each candidate; 0 a break sweep);
+- ``spmm.operator_bytes``: the bytes a sweep's scored operator holds
+  (:func:`tensor_bytes`: values and index of the super-tile operator, rows,
+  cols and vals of COO, the ELL tables and row index of the banded one),
+  added at each build; over ``sweep.builds``, the bytes of one build.
 """
 
 from __future__ import annotations
@@ -118,6 +122,17 @@ def count(name: str, n: int | float = 1) -> int | float:
     value = _counts.get(name, 0) + n
     _counts[name] = value
     return value
+
+
+def tensor_bytes(obj) -> int:
+    """Bytes of the tensors that ``obj`` holds as attributes, each storage
+    counted once (a view shares its base's), from sizes the host keeps."""
+    storages = {}
+    for v in vars(obj).values():
+        if isinstance(v, torch.Tensor):
+            st = v.untyped_storage()
+            storages[(v.device, st.data_ptr())] = st.nbytes()
+    return sum(storages.values())
 
 
 def counters() -> dict[str, int | float]:

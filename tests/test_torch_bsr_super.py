@@ -1,5 +1,7 @@
 """Super-tile operator of the PyTorch port (ops/bsr_super.py) against the JAX
-package's SuperBsrOperator in interpret mode, and against scipy.
+package's SuperBsrOperator in interpret mode, and against scipy: the
+packing equals the JAX package's, and the operator, whose values are one
+array in CSR order, computes the products the packed tiles compute.
 
 On the CPU the port runs the kernels' plain versions; the CUDA kernels run
 on the card (chip_smoke.py)."""
@@ -19,6 +21,7 @@ from krylov_robustness_torch.ops.bsr_super import (
     pack_bsr_super,
     super_tile_count,
 )
+from krylov_robustness_torch.utils import tracing
 from krylov_robustness_tpu.ops import pallas_bsr_super as jbsr
 from test_pallas_spmm import banded_graph
 
@@ -97,7 +100,7 @@ def test_auto_mode_choice():
     Aw.data *= 1 + 1e-4 * np.arange(len(Aw.data))  # not bf16-exact
     assert SuperBsrOperator(Aw, dtype=torch.float32, device="cpu").mode == "f32"
     assert (SuperBsrOperator(A, dtype=torch.float32, device="cpu")
-            .atiles.dtype == torch.bfloat16)
+            .vals.dtype == torch.bfloat16)
 
 
 def test_set_edge_symmetric_and_entry_values():
@@ -152,12 +155,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     x = torch.zeros((300, 4))
     with pytest.raises(ValueError, match="CUDA"):
         bsr_super.tile_spmm_bf16(op._row_ptr, op._cols, op._val_off,
-                                 op.atiles, x, 2)
+                                 op.vals, x, 2)
     for dtype in (torch.float32, torch.float64):
         full = SuperBsrOperator(A, dtype=dtype, device="cpu", mode="f32")
         with pytest.raises(ValueError, match="CUDA"):
             bsr_super.tile_spmm_full(full._row_ptr, full._cols,
-                                     full._val_off, full.atiles,
+                                     full._val_off, full.vals,
                                      x.to(dtype))
 
 
@@ -174,40 +177,119 @@ def test_non_cpu_tensor_never_takes_the_plain_path(monkeypatch):
 
 
 @pytest.mark.parametrize("mode,dtype", [
-    ("bf16x2", torch.float32),   # K1 over bf16 tiles
-    ("f32", torch.float32),      # K2 over f32 tiles
-    ("f32", torch.float64),      # K2 over f64 tiles
+    ("bf16x2", torch.float32),   # K1 over bf16 values
+    ("f32", torch.float32),      # K2 over f32 values
+    ("f32", torch.float64),      # K2 over f64 values
 ])
 @pytest.mark.parametrize("graph", ["banded", "random", "make_slots"])
 def test_row_index_reads_the_packed_matrix(graph, mode, dtype):
-    """K1's and K2's row index over the flattened tiles is the packed matrix
-    in CSR form, explicit zeros included, and stays so after ``set_edge``
-    and over ``with_tiles``' replacement storage; every offset lies inside
-    the tiles."""
+    """K1's and K2's row index over the CSR-order values is the matrix in
+    CSR form, explicit zeros included, and stays so after ``set_edge`` and
+    over ``with_values``' replacement values; each offset is its entry's
+    own position, and the operator holds no tile."""
     A = sp.csr_matrix(_index_graph(graph))
     A.sort_indices()
     op = SuperBsrOperator(A, dtype=dtype, device="cpu", mode=mode)
-    assert op.atiles.dtype == (torch.bfloat16 if mode == "bf16x2" else dtype)
+    assert op.vals.dtype == (torch.bfloat16 if mode == "bf16x2" else dtype)
     row_ptr, cols, val_off = (t.numpy() for t in (op._row_ptr, op._cols,
                                                   op._val_off))
     assert all(t.dtype == torch.int32 for t in (op._row_ptr, op._cols,
                                                 op._val_off))
-    assert val_off.min() >= 0 and val_off.max() < op.atiles.numel()
+    np.testing.assert_array_equal(val_off, np.arange(A.nnz))
+    assert op.vals.shape == (A.nnz,)
+    assert tracing.tensor_bytes(op) == A.nnz * (
+        op.vals.element_size() + 8) + (A.shape[0] + 1) * 4
 
-    def indexed(tiles):
-        flat = tiles.reshape(-1).double().numpy()
+    def indexed(vals):
+        flat = vals.reshape(-1).double().numpy()
         return sp.csr_matrix((flat[val_off], cols, row_ptr), shape=A.shape)
 
-    _assert_same_csr(indexed(op.atiles), A)
+    _assert_same_csr(indexed(op.vals), A)
     C = sp.coo_matrix(sp.tril(A, -1))
     i, j = int(C.row[3]), int(C.col[3])
     op.set_edge(i, j, 0.0)
     A2 = A.copy()
     A2[i, j] = A2[j, i] = 0.0  # explicit zeros: the structure is frozen
-    _assert_same_csr(indexed(op.atiles), A2)
-    other = op.with_tiles(2 * op.atiles)
+    _assert_same_csr(indexed(op.vals), A2)
+    other = op.with_values(2 * op.vals)
     assert other._val_off is op._val_off and other._row_ptr is op._row_ptr
-    _assert_same_csr(indexed(other.atiles), 2 * A2)
+    _assert_same_csr(indexed(other.vals), 2 * A2)
+    with pytest.raises(ValueError, match="match"):
+        op.with_values(op.vals[:-1])
+
+
+def _hub_with_slots(seed: int = 5):
+    """A small graph with hubs (expected degrees ~ (i + 5)^-0.9, up to ~60)
+    and 30 explicit-zero candidate slots in both triangles, as make mode
+    packs them."""
+    rng = np.random.default_rng(seed)
+    n = 900
+    w = (np.arange(n) + 5.0) ** -0.9
+    p = w / w.sum()
+    src, dst = rng.choice(n, 4000, p=p), rng.choice(n, 4000, p=p)
+    A = sp.coo_matrix((np.ones(4000), (src, dst)), shape=(n, n))
+    A = ((A + A.T) > 0).astype(np.float64).tolil()
+    A.setdiag(0)
+    A = sp.csr_matrix(A)
+    A.eliminate_zeros()
+    r, c = rng.integers(0, n, 60), rng.integers(0, n, 60)
+    keep = (r != c) & (np.asarray(A[r, c]).ravel() == 0)
+    r, c = r[keep][:30], c[keep][:30]
+    C = sp.coo_matrix(A)
+    return sp.coo_matrix(
+        (np.concatenate([C.data, np.zeros(2 * len(r))]),
+         (np.concatenate([C.row, r, c]), np.concatenate([C.col, c, r]))),
+        shape=A.shape).tocsr(), np.stack([r, c], axis=1)
+
+
+@pytest.mark.parametrize("mode,dtype", [("f32", torch.float64),
+                                        ("bf16x2", torch.float32)])
+def test_csr_values_equal_scipy_through_edits(mode, dtype):
+    """The CSR-order operator on a hub graph with make's zero slots equals
+    scipy's A @ x: in f64 to round-off, and in bf16x2 to the product of A
+    with x's two bf16 parts, to f32 round-off. ``set_edge`` (a slot's
+    commit, a removal), ``update_entry_values`` and ``entry_values`` edit
+    and read the same entries scipy's matrix holds."""
+    A, slots = _hub_with_slots()
+    op = SuperBsrOperator(A, dtype=dtype, device="cpu", mode=mode)
+    n = A.shape[0]
+    x = np.random.default_rng(6).standard_normal((n, 40))
+
+    def held(M):
+        xt = torch.as_tensor(x).to(dtype)
+        got = (op @ xt).double().numpy()
+        exact = M @ x
+        if mode == "f32":
+            assert np.abs(got - exact).max() <= 1e-13 * np.abs(exact).max()
+            return
+        parts = bf16_split(xt, 2).double().numpy()
+        split = M @ (parts[:, :40] + parts[:, 40:])
+        assert np.abs(got - split).max() <= 1e-6 * np.abs(split).max()
+        assert np.abs(got - exact).max() <= 2e-5 * np.abs(exact).max()
+
+    held(A)
+    M = A.tolil()
+    i, j = (int(v) for v in slots[0])
+    L = sp.coo_matrix(sp.tril(A, -1))
+    a, b = int(L.row[0]), int(L.col[0])
+    op.set_edge(i, j, 1.0)  # a candidate slot committed
+    M[i, j] = M[j, i] = 1.0
+    op.set_edge(a, b, 0.0)  # an edge removed
+    M[a, b] = M[b, a] = 0.0
+    held(sp.csr_matrix(M))
+    k = op.entry_index(np.array([a, int(slots[1][0])]),
+                       np.array([b, int(slots[1][1])]))
+    op.update_entry_values(k, [2.0, 0.5])
+    vals = op.entry_values()
+    assert vals[k[0]] == 2.0 and vals[k[1]] == 0.5
+    M[a, b], M[int(slots[1][0]), int(slots[1][1])] = 2.0, 0.5
+    M = sp.csr_matrix(M)
+    held(M)
+    want = sp.csr_matrix(A, copy=True)
+    want.sort_indices()
+    assert len(vals) == want.nnz  # the structure is frozen: slots stay
+    C = sp.coo_matrix(want)
+    np.testing.assert_array_equal(vals, np.asarray(M[C.row, C.col]).ravel())
 
 
 def _index_graph(kind):
@@ -279,11 +361,10 @@ def test_interop_super_bsr_from_jax_packing():
 
     A = banded_graph(n=700, max_off=50, extra=120, weighted=False)
     jop = jbsr.SuperBsrOperator(A, dtype=jnp.float32, interpret=True)
-    slab, sup, start = (np.asarray(m) for m in jop.meta)
     op = super_bsr_from_arrays(
-        np.asarray(jop.atiles.astype(jnp.float32)), slab, sup, start,
-        jop._entry_tile, jop._entry_offset, jop._entry_rc, jop.n, jop.n_pad,
-        jop.mode, torch.float32, "cpu")
+        np.asarray(jop.atiles.astype(jnp.float32)), jop._entry_tile,
+        jop._entry_offset, jop._entry_rc, jop.n, jop.mode, torch.float32,
+        "cpu")
     assert op.mode == "bf16x2"
     x = np.random.default_rng(5).standard_normal((700, 6)).astype(np.float32)
     got = (op @ torch.as_tensor(x)).numpy()

@@ -20,6 +20,7 @@ from krylov_robustness_torch.graphs.top_edges import (
     find_top_edges,
     find_top_missing_edges,
 )
+from krylov_robustness_torch.ops import bsr_super
 from krylov_robustness_torch.optimize import fused as tfused
 from krylov_robustness_torch.optimize import greedy as tgreedy
 from krylov_robustness_torch.optimize.greedy import (
@@ -330,16 +331,28 @@ def _choice(graphs, band, Q, mode, backend, fits, monkeypatch):
     top = (find_top_missing_edges if mode == "make" else find_top_edges)(
         A, c, Q + 5, "min")
     if not fits:
-        monkeypatch.setattr(tgreedy, "BSR_STORAGE_CAP", 0)
+        # tiles past the JAX package's 768 MiB cap (3,072 of 512 × 256 in
+        # bf16): the port, which holds no tile, takes no notice
+        monkeypatch.setattr(bsr_super, "super_tile_count",
+                            lambda *a, **k: 10**6)
     kind, _, _ = tgreedy.choose_operator(A, top, Q, mode, backend,
                                          torch.device("cuda"))
     return kind
 
 
+def _port_choice(backend, Q, jax_choice):
+    """The port's choice where the JAX package's is ``jax_choice``: the
+    same, except that a super-tile request keeps the super tiles whatever
+    their count, where the JAX package's cap sends it to banded or COO."""
+    wants_tiles = backend == "bsr" or (backend == "auto" and 2 * Q >= 256)
+    return "bsr" if wants_tiles else jax_choice
+
+
 # expected operator per (Q, mode, band, fits), read from the JAX package's
 # choice on the TPU (greedy.py:595-648): super tiles at 2Q >= 256 while they
 # fit the cap, else banded in break mode while the band spans <= 17 windows,
-# else COO
+# else COO; the port's choice differs where the tiles do not fit
+# (:func:`_port_choice`)
 AUTO_GRID = {
     (50, "break", "narrow", True): "banded",
     (50, "break", "narrow", False): "banded",
@@ -364,10 +377,11 @@ AUTO_GRID = {
 def test_auto_choice_on_cuda_is_jax_choice_on_tpu(cell, decision_graphs,
                                                   monkeypatch):
     """backend='auto' with a CUDA device (a torch.device object: nothing is
-    allocated) chooses the operator the JAX package chooses on a TPU."""
+    allocated) chooses the operator the JAX package chooses on a TPU, and
+    keeps the super tiles where the JAX package's cap would refuse them."""
     Q, mode, band, fits = cell
     assert _choice(decision_graphs, band, Q, mode, "auto", fits,
-                   monkeypatch) == AUTO_GRID[cell]
+                   monkeypatch) == _port_choice("auto", Q, AUTO_GRID[cell])
 
 
 @pytest.mark.parametrize("backend,Q,mode,band,fits,want", [
@@ -383,10 +397,29 @@ def test_explicit_backend_choice_is_jax_choice(backend, Q, mode, band, fits,
                                                want, decision_graphs,
                                                monkeypatch):
     """Explicit backends on a CUDA device, as the JAX package decides them
-    on any platform: 'banded' falls back to COO in make mode or past 17
-    windows, 'bsr' past the cap to banded (break) or COO."""
+    on any platform (``want``): 'banded' falls back to COO in make mode or
+    past 17 windows; 'bsr' keeps the super tiles where the JAX package's
+    cap sends it to banded (break) or COO."""
     assert _choice(decision_graphs, band, Q, mode, backend, fits,
-                   monkeypatch) == want
+                   monkeypatch) == _port_choice(backend, Q, want)
+
+
+def test_super_tiles_past_the_old_cap_on_cuda():
+    """A graph whose super-tiles outnumber the 3,072 that the JAX package's
+    768 MiB cap allowed: 'auto' and 'bsr' choose the super-tile operator on
+    a CUDA device without allocating anything, and 'auto' off CUDA takes
+    COO."""
+    A = random_graph(30000, 1.2e-4, seed=11)
+    top = np.zeros((0, 2), np.int64)  # break mode packs no candidate slot
+    kind, perm, A_aug = tgreedy.choose_operator(A, top, 250, "break", "auto",
+                                                torch.device("cuda"))
+    assert kind == "bsr" and A_aug.nnz == A.nnz
+    assert bsr_super.super_tile_count(A, perm) > 3072
+    assert tgreedy.choose_operator(A, top, 50, "break", "bsr",
+                                   torch.device("cuda"))[0] == "bsr"
+    assert tgreedy.choose_operator(A, top, 250, "break", "auto",
+                                   torch.device("cpu"))[0] == "coo"
+    assert not torch.cuda.is_initialized()
 
 
 def test_auto_on_cpu_is_coo(graph):
@@ -410,3 +443,39 @@ def test_fused_request_on_banded_runs_per_step_like_jax(graph):
     assert rt.fused_accepted == 0
     np.testing.assert_array_equal(rt.edges, rj.edges)
     np.testing.assert_allclose(rt.rob_variation, rj.rob_variation, rtol=1e-4)
+
+
+def test_bsr_break_with_shift_matches_the_reference():
+    """A break sweep on the super-tile operator (CSR-order values) on a
+    seeded shifted-power-law graph with hubs, ‖A‖ > 20 so that the σ shift
+    is on, in f64 at tol 1e-12: each step commits the plain reference's
+    best candidate (``benchmark/reference/greedy.py``, f64 block Lanczos
+    with full reorthogonalization), with its Δ to 1e-8 relative."""
+    from benchmark.generators import chung_lu_core, preprocess, \
+        protocol_inputs
+    from benchmark.reference import greedy as ref
+    from benchmark.reference import top_edges_min
+
+    A = preprocess(chung_lu_core.make(
+        {"n": 2000, "draws": 8000, "alpha": 0.89, "head_shift": 14}, 3))
+    lam, cent = protocol_inputs(A)
+    assert A.shape[0] > 1800 and lam > 20
+    k, Q = 3, 20
+    res = greedy_krylov(A, k, Q, cent, order="min", tol=1e-12, mode="break",
+                        dtype=torch.float64, backend="bsr", shift=lam,
+                        fused_steps=0, device="cpu")
+    assert res.operator == "SuperBsrOperator(f32)"
+    top = top_edges_min(A, cent, Q + k)
+    C = sp.coo_matrix(A)
+    for step in range(k):
+        before = {tuple(e) for e in res.edges[:step].tolist()}
+        gone = np.array([(r, c) in before or (c, r) in before
+                         for r, c in zip(C.row, C.col)], bool)
+        A_step = sp.csr_matrix((C.data[~gone], (C.row[~gone], C.col[~gone])),
+                               shape=A.shape)
+        cands = np.asarray([e for e in map(tuple, top.tolist())
+                            if e not in before][:Q], np.int64)
+        truth, _ = ref.delta_trace_exp(A_step, cands, sign=-1.0, shift=lam)
+        h = int(np.argmin(truth))
+        assert tuple(res.edges[step]) == tuple(cands[h]), step
+        assert res.per_step_delta[step] == pytest.approx(truth[h], rel=1e-8)

@@ -64,6 +64,10 @@ EXEMPT = {
     ("krylov_robustness_tpu.parallel.spmm_sharded", "interpret"):
         "Pallas interpret mode: in the port a CPU tensor runs the plain "
         "version and a CUDA tensor the kernel",
+    ("krylov_robustness_tpu.ops.pallas_bsr_super", "ntiles"):
+        "the port's super-tile operator holds no tiles: its values are one "
+        "array in CSR order (ops/bsr_super.py; super_tile_count counts the "
+        "tiles a packing would take)",
 }
 
 

@@ -175,6 +175,31 @@ def test_candidate_range_and_sweep_counters(graph, monkeypatch, mode):
     assert grew["sweep.slots"] == [2 * (Q + 2) if mode == "make" else 0]
 
 
+@pytest.mark.parametrize("backend", ["bsr", "banded", "coo"])
+def test_operator_bytes_grow_by_each_build(graph, backend):
+    """spmm.operator_bytes grows at each sweep build by the bytes of the
+    operator it built, counted here from A's shapes: the super-tile
+    operator's f64 values in CSR order, int32 columns, value offsets and
+    row pointers (no tile); the banded operator's (K, n) int32 columns and
+    f64 values (K the largest row) and its int32 row index; COO's int64
+    rows and columns and f64 values."""
+    A, c, tol = graph
+    n, nnz = A.shape[0], A.nnz
+    K = int(np.diff(A.indptr).max())
+    want = {"bsr": nnz * (8 + 4 + 4) + (n + 1) * 4,
+            "banded": K * n * (4 + 8) + (n + 1) * 4 + nnz * (4 + 4),
+            "coo": nnz * (8 + 8 + 8)}[backend]
+    before = tracing.counters()
+    for _ in range(2):
+        greedy_krylov(A, 1, Q, c, order="min", tol=tol, mode="break",
+                      dtype=torch.float64, backend=backend, fused_steps=0,
+                      device="cpu")
+    now = tracing.counters()
+    grew = {k: now[k] - before.get(k, 0) for k in ("spmm.operator_bytes",
+                                                   "sweep.builds")}
+    assert grew == {"spmm.operator_bytes": 2 * want, "sweep.builds": 2}
+
+
 def test_sturm_span_carries_batch_and_order():
     G = torch.randn(3, 12, 12, dtype=torch.float64)
     G = G + G.transpose(-1, -2)
