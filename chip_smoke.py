@@ -499,16 +499,27 @@ def phase_flat_fallback(dev, H) -> None:
           "hub graph: the COO fallback is not in the identity order")
 
 
-def phase_epinions_operator(dev) -> None:
-    """The super-tile operator on the benchmark's soc-Epinions1-scale
-    stand-in (structure seed 0, RCM-ordered): its super-tiles would take
-    ~9 GB in bf16, its CSR-order values and index take a few MB; one K1
-    product at the cell's b = 500 held against ``coo_spmm`` in f32."""
+def epinions_graph() -> sp.csr_matrix:
+    """The benchmark's soc-Epinions1-scale stand-in (structure seed 0) in
+    RCM order, f64."""
     import importlib
 
     from benchmark.generators import run_graph
     from benchmark.harness import resolve
     from krylov_robustness_torch.ops.banded_spmm import rcm_permutation
+
+    config = resolve("epinions.break_q250_perstep")[1]
+    A = run_graph(config, importlib.import_module(
+        f"benchmark.generators.{config['generator']}"), 0)
+    perm = rcm_permutation(A)
+    return sp.csr_matrix(A[perm, :][:, perm], dtype=np.float64)
+
+
+def phase_epinions_operator(dev) -> None:
+    """The super-tile operator on the benchmark's soc-Epinions1-scale
+    stand-in (:func:`epinions_graph`): its super-tiles would take ~9 GB in
+    bf16, its CSR-order values and index take a few MB; one K1 product at
+    the cell's b = 500 held against ``coo_spmm`` in f32."""
     from krylov_robustness_torch.ops.bsr_super import (
         TILE_C,
         TILE_R,
@@ -518,11 +529,7 @@ def phase_epinions_operator(dev) -> None:
     from krylov_robustness_torch.ops.sparse import CooMatrix, coo_spmm
     from krylov_robustness_torch.utils.tracing import tensor_bytes
 
-    config = resolve("epinions.break_q250_perstep")[1]
-    A = run_graph(config, importlib.import_module(
-        f"benchmark.generators.{config['generator']}"), 0)
-    perm = rcm_permutation(A)
-    Ap = sp.csr_matrix(A[perm, :][:, perm], dtype=np.float64)
+    Ap = epinions_graph()
     tiles = super_tile_count(Ap) * TILE_R * TILE_C * 2
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -538,7 +545,9 @@ def phase_epinions_operator(dev) -> None:
     print(f"[kernels] epinions K1 {op.mode}: n={op.n} nnz={op.nnz} b=500 "
           f"tiles would take {tiles / 1e9:.2f} GB, the operator holds "
           f"{held / 1e6:.2f} MB; K1 {k1_ms:.4f} ms, coo_spmm {coo_ms:.4f} ms, "
-          f"rel err vs coo_spmm {err:.3e} (gate {GATES[op.mode]:.0e}); peak "
+          f"rel err vs coo_spmm {err:.3e} (gate {GATES[op.mode]:.0e}); split "
+          f"{op.split_entries / op.nnz:.1%} of the entries in "
+          f"{op.split_units} units; peak "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
     check(op.mode == "bf16x2", f"epinions: mode {op.mode}")
     check(held < 64 * 2**20 < tiles, f"epinions: the operator holds {held} "
@@ -1278,6 +1287,7 @@ class MainPathCapture:
         self.k3 = banded_spmm.ell_spmm
         self.k4 = bsr.bsr_spmm
         self.kept = {}
+        self.splits = {}  # K1/K2 key → the split plan of its last launch
         self.paused = False
 
     @contextlib.contextmanager
@@ -1304,16 +1314,19 @@ class MainPathCapture:
                                                for a in args[frozen:]))
 
     def __enter__(self):
-        def k1(row_ptr, cols, val_off, vals, x, terms):
-            self._keep(("K1", f"bf16x{terms}", vals.numel(), *x.shape),
-                       (row_ptr, cols, val_off, vals, x), frozen=3)
-            return self.k1(row_ptr, cols, val_off, vals, x, terms)
+        def k1(row_ptr, cols, val_off, vals, x, terms, split=None):
+            key = ("K1", f"bf16x{terms}", vals.numel(), *x.shape)
+            self._keep(key, (row_ptr, cols, val_off, vals, x), frozen=3)
+            self.splits[key] = split
+            return self.k1(row_ptr, cols, val_off, vals, x, terms,
+                           split=split)
 
-        def k2(row_ptr, cols, val_off, vals, x):
+        def k2(row_ptr, cols, val_off, vals, x, split=None):
             label = "f32" if x.dtype == torch.float32 else "f64"
-            self._keep(("K2", label, vals.numel(), *x.shape),
-                       (row_ptr, cols, val_off, vals, x), frozen=3)
-            return self.k2(row_ptr, cols, val_off, vals, x)
+            key = ("K2", label, vals.numel(), *x.shape)
+            self._keep(key, (row_ptr, cols, val_off, vals, x), frozen=3)
+            self.splits[key] = split
+            return self.k2(row_ptr, cols, val_off, vals, x, split=split)
 
         def k3(cols, vals, row_ptr, entry_cols, val_off, x):
             label = "f32" if x.dtype == torch.float32 else "f64"
@@ -1361,13 +1374,15 @@ class MainPathCapture:
                 where = f"{kernel} {label} blocks={size} n={n} b={b}"
             else:
                 row_ptr, cols, val_off, vals, x = args
+                split = self.splits.get(key)
                 if kernel == "K1":
                     terms = int(label[-1])
-                    yk = self.k1(row_ptr, cols, val_off, vals, x, terms)
+                    yk = self.k1(row_ptr, cols, val_off, vals, x, terms,
+                                 split=split)
                     yp = self.mod.csr_spmm_bf16_plain(row_ptr, cols, val_off,
                                                       vals, x, terms)
                 else:
-                    yk = self.k2(row_ptr, cols, val_off, vals, x)
+                    yk = self.k2(row_ptr, cols, val_off, vals, x, split=split)
                     yp = self.mod.csr_spmm_full_plain(row_ptr, cols, val_off,
                                                       vals, x)
                 where = f"{kernel} {label} values={size} n={n} b={b}"

@@ -23,10 +23,11 @@
 // K2: y (n, b) = A x in full f32 or f64, for values that are not bf16-exact
 // and for f64: one DFMA an entry into an f64 sum (also for f32 values and x,
 // rounded to f32 once at the store; never TF32), in CSR order for b >= 32
-// and as a tree over a warp's lanes for b < 32. A sequential f32 sum over a
-// hub row of up to 511 entries sat at the f32 gate of 1e-6 of max|y|
-// (PERF.md); the f64 sum costs ~2e8 DFMA at b = 500 on a hub graph at
-// ca-AstroPh's scale, against gathers that take ~0.3 ms.
+// (a row the split plan cuts: in CSR order within each piece, then the
+// pieces' sums in order) and as a tree over a warp's lanes for b < 32. A
+// sequential f32 sum over a hub row of up to 511 entries sat at the f32 gate
+// of 1e-6 of max|y| (PERF.md); the f64 sum costs ~2e8 DFMA at b = 500 on a
+// hub graph at ca-AstroPh's scale, against gathers that take ~0.3 ms.
 //
 // Why the tiles are not computed whole. The TPU packs tiles because its
 // matrix unit is dense and Mosaic cannot gather. The tiles are nearly empty:
@@ -50,14 +51,22 @@
 // b = 512 in f32 on that road network (1.69 GB in f64), against ~80 MB and
 // ~392 MB (~784 MB) through HBM. On the hub graph the gathers miss L1 (no
 // locality in any node order), and their rate from L2 sets the time
-// (PERF.md).
+// (PERF.md). A warp's time is its run's entries, so a run that holds a hub's
+// row would be the grid's tail: the single-card operator passes a split
+// plan (ops/row_gather.py::split_plan), whose units of at most
+// SPLIT_ENTRIES entries take such runs first in each column slice; the
+// pieces of a cut row keep their sums in a scratch of (pieces, terms, b) in
+// the sum type (f32 parts for K1, f64 for K2) that the caller allocates, and
+// a second launch adds them in piece order into y (row_gather.cuh). On a
+// road network no run is that long and the plan is empty.
 //
 // Every entry point launches on the given stream, allocates nothing and returns
 // cudaGetLastError() (0 = success). `n` is the number of y rows: x is read
 // only through the index's columns, so x may have other rows than y, as in
 // a shard's block of a row-sharded operator (parallel/spmm_sharded.py: its
 // own rows against its local x or the gathered x); the caller checks that
-// every column lies inside x.
+// every column lies inside x. `plan` is a split plan of the index, or
+// nullptr (a shard's block passes none).
 
 #include <cuda_runtime.h>
 
@@ -70,14 +79,15 @@ extern "C" {
 // `terms` bf16 parts (2 or 3).
 int krt_bsr_super_bf16(const void* row_ptr, const void* cols,
                        const void* val_off, const void* vals, const void* x,
-                       void* y, int n, int b, int terms, void* stream) {
+                       void* y, int n, int b, int terms,
+                       const row_gather::SplitPlan* plan, void* stream) {
   switch (terms) {
     case 2:
       return row_gather::launch<__nv_bfloat16, float, 2>(
-          row_ptr, cols, val_off, vals, x, y, n, b, stream);
+          row_ptr, cols, val_off, vals, x, y, n, b, stream, plan);
     case 3:
       return row_gather::launch<__nv_bfloat16, float, 3>(
-          row_ptr, cols, val_off, vals, x, y, n, b, stream);
+          row_ptr, cols, val_off, vals, x, y, n, b, stream, plan);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -91,18 +101,20 @@ using K2F32Sum = double;
 // values, each sum in f64 (DFMA) and rounded to f32 once.
 int krt_bsr_super_f32(const void* row_ptr, const void* cols,
                       const void* val_off, const void* vals, const void* x,
-                      void* y, int n, int b, void* stream) {
+                      void* y, int n, int b,
+                      const row_gather::SplitPlan* plan, void* stream) {
   return row_gather::launch<float, float, 1, K2F32Sum>(
-      row_ptr, cols, val_off, vals, x, y, n, b, stream);
+      row_ptr, cols, val_off, vals, x, y, n, b, stream, plan);
 }
 
 // K2 in f64: y (n, b) = A x (n, b) over the row index into the flat f64
 // values, DFMA only.
 int krt_bsr_super_f64(const void* row_ptr, const void* cols,
                       const void* val_off, const void* vals, const void* x,
-                      void* y, int n, int b, void* stream) {
-  return row_gather::launch<double, double, 1>(row_ptr, cols, val_off,
-                                               vals, x, y, n, b, stream);
+                      void* y, int n, int b,
+                      const row_gather::SplitPlan* plan, void* stream) {
+  return row_gather::launch<double, double, 1>(
+      row_ptr, cols, val_off, vals, x, y, n, b, stream, plan);
 }
 
 }  // extern "C"

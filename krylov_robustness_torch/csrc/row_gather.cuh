@@ -33,8 +33,27 @@
 // instead, one column at a time, and the warp reduces each sum with
 // __shfl_xor_sync (the sum is then a tree over the lanes, not CSR order).
 //
+// Split units (b >= 32, with a split plan: ops/row_gather.py::split_plan).
+// A warp's time is its run's entries / UNROLL dependent rounds of gathers,
+// so one run that holds a hub's row is the grid's tail. A plan takes every
+// run of more than SPLIT_ENTRIES entries out of the row groups (its warp
+// returns at once) and gives each of its rows to units of at most
+// SPLIT_ENTRIES entries, one warp a unit, walked by the same stream: a row
+// of at most SPLIT_ENTRIES entries is one unit and writes y as its run's
+// warp would have, bit for bit; a longer row is cut into balanced pieces,
+// whose sums (each of the TERMS parts apart) go to a scratch of (pieces,
+// TERMS, b) in Acc. The units take the first CTAs of each column slice, the
+// cut rows' pieces first, so no long unit starts at the grid's tail. A
+// second launch then adds each cut row's piece sums in piece order, each
+// part apart, the parts high first, and rounds once into y: a fixed order,
+// no atomics, the same bits every run. A cut row's sum is thus a sum of
+// piece sums in Acc, rounded at other points than one stream's. An empty
+// plan launches exactly the grid above, with no scratch and no second
+// launch.
+//
 // Each y value is written once; a row without entries is written as 0. No
-// atomics, no zero pass, no shared memory, nothing allocated.
+// atomics, no zero pass, no shared memory, nothing allocated: the caller
+// passes the plan's scratch.
 //
 // The constants were chosen on an NVIDIA H100 80GB HBM3 at 700 W;
 // `python3 -m krylov_robustness_torch.tools.probe gather` times them against
@@ -52,6 +71,9 @@ constexpr int WARPS = 4;  // warps per CTA
 constexpr int ROWS_PER_WARP = 4;
 constexpr int ROWS_PER_CTA = WARPS * ROWS_PER_WARP;
 constexpr int UNROLL = 4;  // entries whose x loads are issued together
+// the most entries a warp's run may hold before a split plan cuts it, and the
+// most a split unit holds (ops/row_gather.py::SPLIT_ENTRIES)
+constexpr int SPLIT_ENTRIES = 128;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
@@ -134,22 +156,50 @@ struct Lanes {
     }
     clear();
   }
+  // writes the sums, each part apart, into a piece's scratch: part k's into
+  // row k of pr (TERMS rows of b)
+  __device__ __forceinline__ void keep(Acc* __restrict__ pr, int b) const {
+#pragma unroll
+    for (int g = 0; g < REP; ++g) {
+      if (!live[g]) continue;
+#pragma unroll
+      for (int k = 0; k < TERMS; ++k) {
+        Pack<Acc, VEC> out;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) out.v[i] = acc[g][i][k];
+        *reinterpret_cast<Pack<Acc, VEC>*>(pr + (size_t)k * b + col[g]) = out;
+      }
+    }
+  }
+  // adds a piece's sums out of its scratch pr, each part to its own
+  __device__ __forceinline__ void add(const Acc* __restrict__ pr, int b) {
+#pragma unroll
+    for (int g = 0; g < REP; ++g) {
+      if (!live[g]) continue;
+#pragma unroll
+      for (int k = 0; k < TERMS; ++k) {
+        const Pack<Acc, VEC> in =
+            *reinterpret_cast<const Pack<Acc, VEC>*>(pr + (size_t)k * b +
+                                                     col[g]);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[g][i][k] = acc[g][i][k] + in.v[i];
+      }
+    }
+  }
 };
 
-// b >= 32: rows row0 .. row0 + count - 1, their entries as one stream.
+// b >= 32: sums the entries e_begin .. e_end - 1 into out in CSR order.
+// Before an entry at or past `bound`, the end of row row0 + cur, it writes
+// that row into y and moves to the next (lane i <= count holds
+// row_ptr[row0 + i] in my_rp); a piece of one row passes bound = e_end and
+// writes nothing.
 template <typename V, typename T, typename Acc, int TERMS, int VEC, int REP>
-__device__ __forceinline__ void wide_rows(
-    int row0, int count, int lane, int c0, const int* __restrict__ row_ptr,
-    const int* __restrict__ cols, const int* __restrict__ val_off,
-    const V* __restrict__ vals, const T* __restrict__ x, T* __restrict__ y,
-    int b) {
-  Lanes<T, Acc, TERMS, VEC, REP> out(c0, lane, b);
-  // lane i <= count holds row_ptr[row0 + i]
-  const int my_rp = lane <= count ? row_ptr[row0 + lane] : 0;
-  const int e_end = __shfl_sync(FULL, my_rp, count);
-  int cur = 0;                              // the row summed now, from row0
-  int bound = __shfl_sync(FULL, my_rp, 1);  // the end of its entries
-  for (int e0 = __shfl_sync(FULL, my_rp, 0); e0 < e_end; e0 += 32) {
+__device__ __forceinline__ void walk(
+    Lanes<T, Acc, TERMS, VEC, REP>& out, int e_begin, int e_end, int my_rp,
+    int row0, int& cur, int& bound, int lane, const int* __restrict__ cols,
+    const int* __restrict__ val_off, const V* __restrict__ vals,
+    const T* __restrict__ x, T* __restrict__ y, int b) {
+  for (int e0 = e_begin; e0 < e_end; e0 += 32) {
     const int cnt = min(32, e_end - e0);
     int my_col = 0;
     T my_val = T(0);
@@ -192,8 +242,42 @@ __device__ __forceinline__ void wide_rows(
       }
     }
   }
+}
+
+// b >= 32: rows row0 .. row0 + count - 1, their entries as one stream; none
+// if they hold more than `most` entries (a split plan's units sum them).
+template <typename V, typename T, typename Acc, int TERMS, int VEC, int REP>
+__device__ __forceinline__ void wide_rows(
+    int row0, int count, int most, int lane, int c0,
+    const int* __restrict__ row_ptr, const int* __restrict__ cols,
+    const int* __restrict__ val_off, const V* __restrict__ vals,
+    const T* __restrict__ x, T* __restrict__ y, int b) {
+  // lane i <= count holds row_ptr[row0 + i]
+  const int my_rp = lane <= count ? row_ptr[row0 + lane] : 0;
+  const int e_begin = __shfl_sync(FULL, my_rp, 0);
+  const int e_end = __shfl_sync(FULL, my_rp, count);
+  if (e_end - e_begin > most) return;  // uniform across the warp
+  Lanes<T, Acc, TERMS, VEC, REP> out(c0, lane, b);
+  int cur = 0;                              // the row summed now, from row0
+  int bound = __shfl_sync(FULL, my_rp, 1);  // the end of its entries
+  walk<V, T, Acc, TERMS, VEC, REP>(out, e_begin, e_end, my_rp, row0, cur,
+                                   bound, lane, cols, val_off, vals, x, y, b);
   for (; cur < count; ++cur)  // the last row with entries, and empty ones
     out.flush(y + (size_t)(row0 + cur) * b);
+}
+
+// b >= 32: the entries e_begin .. e_end - 1 of one cut row as one stream,
+// their sums kept, each part apart, in the piece's scratch pr.
+template <typename V, typename T, typename Acc, int TERMS, int VEC, int REP>
+__device__ __forceinline__ void wide_piece(
+    int e_begin, int e_end, int lane, int c0, const int* __restrict__ cols,
+    const int* __restrict__ val_off, const V* __restrict__ vals,
+    const T* __restrict__ x, Acc* __restrict__ pr, int b) {
+  Lanes<T, Acc, TERMS, VEC, REP> out(c0, lane, b);
+  int cur = 0, bound = e_end;  // no row ends inside a piece
+  walk<V, T, Acc, TERMS, VEC, REP>(out, e_begin, e_end, 0, 0, cur, bound,
+                                   lane, cols, val_off, vals, x, nullptr, b);
+  out.keep(pr, b);
 }
 
 // b < 32: the lanes stride over one row's entries, one column at a time.
@@ -223,16 +307,38 @@ __device__ __forceinline__ void narrow_row(
 }
 
 // V: the storage type of the values; T: the type of x and y; Acc: the type
-// of the sums.
+// of the sums. The first ceil(n_units / WARPS) CTAs of each column slice
+// take a split plan's units, one a warp (its first `pieces` write scratch
+// rows of part); the others the runs of ROWS_PER_WARP rows, skipping those
+// of more than SPLIT_ENTRIES entries where there are units.
 template <typename V, typename T, typename Acc, int TERMS, int VEC, int REP>
 __global__ void __launch_bounds__(WARPS * 32) row_gather_kernel(
     const int* __restrict__ row_ptr, const int* __restrict__ cols,
     const int* __restrict__ val_off, const V* __restrict__ vals,
-    const T* __restrict__ x, T* __restrict__ y, int n, int b) {
+    const T* __restrict__ x, T* __restrict__ y, int n, int b,
+    const int* __restrict__ units, int n_units, int pieces,
+    Acc* __restrict__ part) {
   static_assert(TERMS == 1 || sizeof(T) == 4, "bf16 parts split f32 x only");
   const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int c0 = blockIdx.y * 32 * VEC * REP;
+  const int unit_ctas = (n_units + WARPS - 1) / WARPS;
+  if ((int)blockIdx.x < unit_ctas) {  // only b >= 32 is given units
+    const int u = blockIdx.x * WARPS + warp;
+    if (u >= n_units) return;  // uniform across the warp
+    if (u < pieces) {
+      wide_piece<V, T, Acc, TERMS, VEC, REP>(
+          units[3 * u + 1], units[3 * u + 2], lane, c0, cols, val_off, vals,
+          x, part + (size_t)u * TERMS * b, b);
+    } else {  // a whole row
+      wide_rows<V, T, Acc, TERMS, VEC, REP>(units[3 * u], 1, 0x7fffffff,
+                                            lane, c0, row_ptr, cols, val_off,
+                                            vals, x, y, b);
+    }
+    return;
+  }
   const int row0 =
-      blockIdx.x * ROWS_PER_CTA + (threadIdx.x / 32) * ROWS_PER_WARP;
+      ((int)blockIdx.x - unit_ctas) * ROWS_PER_CTA + warp * ROWS_PER_WARP;
   if (row0 >= n) return;  // uniform across the warp
   const int count = min(ROWS_PER_WARP, n - row0);
   if (b < 32) {
@@ -240,44 +346,101 @@ __global__ void __launch_bounds__(WARPS * 32) row_gather_kernel(
       narrow_row<V, T, Acc, TERMS>(r, lane, row_ptr, cols, val_off, vals, x,
                                    y, b);
   } else {
-    wide_rows<V, T, Acc, TERMS, VEC, REP>(row0, count, lane,
-                                     blockIdx.y * 32 * VEC * REP, row_ptr,
-                                     cols, val_off, vals, x, y, b);
+    wide_rows<V, T, Acc, TERMS, VEC, REP>(
+        row0, count, n_units > 0 ? SPLIT_ENTRIES : 0x7fffffff, lane, c0,
+        row_ptr, cols, val_off, vals, x, y, b);
   }
 }
+
+// A split plan's second launch: y row of each cut row = its pieces' sums
+// added in piece order, each part apart, then the parts high first, rounded
+// once. One warp a cut row and column slice.
+template <typename T, typename Acc, int TERMS, int VEC, int REP>
+__global__ void __launch_bounds__(WARPS * 32) fixup_kernel(
+    const int* __restrict__ units, const int* __restrict__ cut_end,
+    int n_cuts, const Acc* __restrict__ part, T* __restrict__ y, int b) {
+  const int c = blockIdx.x * WARPS + threadIdx.x / 32;
+  if (c >= n_cuts) return;  // uniform across the warp
+  const int first = c > 0 ? cut_end[c - 1] : 0;
+  const int end = cut_end[c];
+  Lanes<T, Acc, TERMS, VEC, REP> out(blockIdx.y * 32 * VEC * REP,
+                                     threadIdx.x % 32, b);
+  for (int p = first; p < end; ++p) out.add(part + (size_t)p * TERMS * b, b);
+  out.flush(y + (size_t)units[3 * first] * b);
+}
+
+// A split plan on the device (ops/row_gather.py::SplitPlan), passed from
+// Python with ctypes: units (n_units, 3) int32 (row, first entry, end
+// entry), the cut rows' `pieces` first; cut_end (n_cuts) int32, each cut
+// row's end among the pieces; part, the pieces' scratch, (pieces, TERMS, b)
+// of the sum type, from the caller; `limit` and `run`, the SPLIT_ENTRIES and
+// ROWS_PER_WARP the plan was built for.
+struct SplitPlan {
+  const int* units;
+  const int* cut_end;
+  void* part;
+  int n_units;
+  int n_cuts;
+  int pieces;
+  int limit;
+  int run;
+};
 
 template <typename V, typename T, typename Acc, int TERMS, int VEC, int REP>
 int launch_grid(const void* row_ptr, const void* cols, const void* val_off,
                 const void* vals, const void* x, void* y, int n, int b,
-                void* stream) {
+                const SplitPlan* plan, void* stream) {
   constexpr int slice = 32 * VEC * REP;
   const int slices = b < 32 ? 1 : (b + slice - 1) / slice;
   if (slices > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + ROWS_PER_CTA - 1) / ROWS_PER_CTA, slices);
+  const int n_units = plan && b >= 32 ? plan->n_units : 0;
+  const long long ctas = (n + ROWS_PER_CTA - 1) / ROWS_PER_CTA +
+                         ((long long)n_units + WARPS - 1) / WARPS;
+  if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)ctas, slices);
   row_gather_kernel<V, T, Acc, TERMS, VEC, REP><<<grid, WARPS * 32, 0,
                                                   (cudaStream_t)stream>>>(
       (const int*)row_ptr, (const int*)cols, (const int*)val_off,
-      (const V*)vals, (const T*)x, (T*)y, n, b);
+      (const V*)vals, (const T*)x, (T*)y, n, b,
+      n_units ? plan->units : nullptr, n_units, n_units ? plan->pieces : 0,
+      n_units ? (Acc*)plan->part : nullptr);
+  if (n_units && plan->n_cuts) {
+    const dim3 fix((plan->n_cuts + WARPS - 1) / WARPS, slices);
+    fixup_kernel<T, Acc, TERMS, VEC, REP><<<fix, WARPS * 32, 0,
+                                            (cudaStream_t)stream>>>(
+        plan->units, plan->cut_end, plan->n_cuts, (const Acc*)plan->part,
+        (T*)y, b);
+  }
   return (int)cudaGetLastError();
 }
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 =
 // success): y (n, b) = A x (n, b) for A given by (row_ptr, cols, val_off,
 // vals), each sum accumulated in Acc; the caller checks that the index lies
-// inside vals and x. 16-byte loads where b and the pointers allow them, else
+// inside vals and x. `plan` (nullptr: none) is a split plan of the index;
+// b < 32 ignores it. 16-byte loads where b and the pointers allow them, else
 // two columns a lane.
 template <typename V, typename T, int TERMS, typename Acc = T>
 int launch(const void* row_ptr, const void* cols, const void* val_off,
            const void* vals, const void* x, void* y, int n, int b,
-           void* stream) {
+           void* stream, const SplitPlan* plan = nullptr) {
   if (n <= 0 || b <= 0 || n > 0x7fffffff - ROWS_PER_CTA)
     return (int)cudaErrorInvalidValue;
+  if (plan && plan->n_units > 0 &&
+      (plan->limit != SPLIT_ENTRIES || plan->run != ROWS_PER_WARP ||
+       !plan->units || plan->pieces < 0 ||
+       plan->pieces > plan->n_units || plan->n_cuts > plan->pieces ||
+       (plan->n_cuts > 0) != (plan->pieces > 0) ||
+       (plan->pieces > 0 && (!plan->cut_end || !plan->part))))
+    return (int)cudaErrorInvalidValue;
   constexpr int VEC = 16 / sizeof(T);
-  if (b % VEC == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0)
+  const uintptr_t part = plan ? (uintptr_t)plan->part : 0;
+  if (b % VEC == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0 &&
+      part % (VEC * sizeof(Acc)) == 0)
     return launch_grid<V, T, Acc, TERMS, VEC, 1>(row_ptr, cols, val_off, vals,
-                                                  x, y, n, b, stream);
+                                                  x, y, n, b, plan, stream);
   return launch_grid<V, T, Acc, TERMS, 1, 2>(row_ptr, cols, val_off, vals, x,
-                                              y, n, b, stream);
+                                              y, n, b, plan, stream);
 }
 
 }  // namespace row_gather

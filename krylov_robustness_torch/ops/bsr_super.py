@@ -14,7 +14,11 @@ computed. :class:`SuperBsrOperator` holds its values in one array in CSR
 order, so its ``val_off`` is each entry's own position and no tile is
 allocated: its storage is the nonzeros, whatever its tiles would have taken
 (a hub graph at soc-Epinions1's scale packs into ~9 GB of bf16 tiles for
-0.8 M values). A row-sharded block reads its flattened tiles.
+0.8 M values). A row-sharded block reads its flattened tiles. The operator
+also holds its index's split plan (:func:`.row_gather.split_plan`): the runs
+of rows that hold a hub's entries go to units of at most ``SPLIT_ENTRIES``
+entries, so that no warp carries a hub's whole row; a shard's block passes
+none, nor does a road network have such a run.
 
 * K1 (``tile_spmm_bf16``) replaces ``_kernel_bf16`` — modes
   ``bf16x2``/``bf16x3``: A stored in bf16 (bf16-exact 0/±1 adjacency); each
@@ -249,15 +253,59 @@ def csr_spmm_full_plain(row_ptr, cols, val_off, vals, x):
     return y.to(x.dtype)
 
 
+def split_spmm_plain(row_ptr, cols, val_off, vals, x, split, terms: int = 0):
+    """Plain twin of K1 (``terms`` 2 or 3) or K2 (``terms`` 0) in the
+    kernels' order under the split plan ``split``: every row as
+    :func:`csr_spmm_bf16_plain` / :func:`csr_spmm_full_plain` give it, but
+    each cut row as the sum, in piece order, of its pieces' sums (in K1 each
+    bf16 part's apart, in f32, the parts then added high first; in K2 in
+    f64, rounded to x's dtype once). b < 32 takes no plan."""
+    y = (csr_spmm_bf16_plain(row_ptr, cols, val_off, vals, x, terms) if terms
+         else csr_spmm_full_plain(row_ptr, cols, val_off, vals, x))
+    if not split.pieces or x.shape[1] < 32:
+        return y
+    b, dev = x.shape[1], x.device
+    units = split.units[:split.pieces].long().to(dev)
+    lens = units[:, 2] - units[:, 1]
+    piece = torch.repeat_interleave(torch.arange(split.pieces, device=dev),
+                                    lens)
+    e = units[piece, 1] + torch.arange(len(piece), device=dev) - \
+        (torch.cumsum(lens, 0) - lens)[piece]
+    v = vals.reshape(-1)[val_off.long()[e]]
+    c = cols.long()[e]
+    if terms:
+        xs = bf16_split(x, terms).float()[c]
+        part = torch.zeros((split.pieces, terms * b), dtype=torch.float32,
+                           device=dev)
+        part.index_add_(0, piece, v.float()[:, None] * xs)
+    else:
+        part = torch.zeros((split.pieces, b), dtype=torch.float64, device=dev)
+        part.index_add_(0, piece, v.double()[:, None] * x.double()[c])
+    end = split.cut_end.long().to(dev)
+    first = end - torch.diff(end, prepend=end.new_zeros(1))
+    total = part[first]
+    for j in range(1, int((end - first).max())):
+        more = end - first > j
+        total[more] += part[first[more] + j]
+    if terms:
+        s = total[:, :b]
+        for k in range(1, terms):
+            s = s + total[:, k * b:(k + 1) * b]
+        total = s
+    y[units[first, 0]] = total.to(y.dtype)
+    return y
+
+
 # -- kernel binding ----------------------------------------------------------
 def _library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = cuda_build.library("bsr_super")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.krt_bsr_super_bf16.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
+        plan = ctypes.POINTER(row_gather.CSplitPlan)
+        lib.krt_bsr_super_bf16.argtypes = [ptr] * 6 + [i32] * 3 + [plan, ptr]
         for name in ("krt_bsr_super_f32", "krt_bsr_super_f64"):
-            getattr(lib, name).argtypes = [ptr] * 6 + [i32] * 2 + [ptr]
+            getattr(lib, name).argtypes = [ptr] * 6 + [i32] * 2 + [plan, ptr]
         for name in ("krt_bsr_super_bf16", "krt_bsr_super_f32",
                      "krt_bsr_super_f64"):
             getattr(lib, name).restype = i32
@@ -265,14 +313,17 @@ def _library() -> ctypes.CDLL:
     return _LIB
 
 
-def tile_spmm_bf16(row_ptr, cols, val_off, vals, x, terms: int):
+def tile_spmm_bf16(row_ptr, cols, val_off, vals, x, terms: int,
+                   split: row_gather.SplitPlan | None = None):
     """K1: y (m, b) f32 = A @ x for f32 x (n_x, b), A's values gathered out
     of the bf16 storage ``vals`` (the operator's CSR-order values, or a
     shard's tiles) through the int32 row index (``row_ptr`` of m + 1,
     ``cols`` and ``val_off`` of nnz, every column below n_x; see
     :mod:`.row_gather`), x split into ``terms`` bf16 parts inside the kernel.
     m = n_x for the square operator; a shard's block of a row-sharded
-    operator has its own rows (m) and reads local or gathered x (n_x)."""
+    operator has its own rows (m) and reads local or gathered x (n_x).
+    ``split``: the index's split plan (:func:`.row_gather.split_plan`), or
+    None for the row groups alone."""
     m = row_gather.check_launch("K1", row_ptr, cols, val_off, vals, x,
                                 torch.bfloat16, torch.float32)
     if terms not in (2, 3):
@@ -281,22 +332,24 @@ def tile_spmm_bf16(row_ptr, cols, val_off, vals, x, terms: int):
     y = torch.empty((m, b), dtype=torch.float32, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
+        plan = row_gather.launch_plan(split, x, terms, torch.float32)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.krt_bsr_super_bf16(
             row_ptr.data_ptr(), cols.data_ptr(), val_off.data_ptr(),
-            vals.data_ptr(), x.data_ptr(), y.data_ptr(), m, b, terms,
+            vals.data_ptr(), x.data_ptr(), y.data_ptr(), m, b, terms, plan,
             stream)
     cuda_build.raise_on(code, "krt_bsr_super_bf16")
     tracing.count("spmm.launches.K1")
     return y
 
 
-def tile_spmm_full(row_ptr, cols, val_off, vals, x):
+def tile_spmm_full(row_ptr, cols, val_off, vals, x,
+                   split: row_gather.SplitPlan | None = None):
     """K2: y (m, b) = A @ x for x (n_x, b) in f32 or f64, A's values gathered
     out of the storage ``vals`` (in x's dtype) through the int32 row index
     (``row_ptr`` of m + 1, ``cols`` and ``val_off`` of nnz, every column
     below n_x; see :mod:`.row_gather`), one DFMA an entry into an f64 sum
-    (in f32 rounded once at the store). m and n_x as for K1."""
+    (in f32 rounded once at the store). m, n_x and ``split`` as for K1."""
     if x.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"K2 takes float32 or float64, got {x.dtype}")
     m = row_gather.check_launch("K2", row_ptr, cols, val_off, vals, x,
@@ -307,9 +360,10 @@ def tile_spmm_full(row_ptr, cols, val_off, vals, x):
     fn = (lib.krt_bsr_super_f32 if x.dtype == torch.float32
           else lib.krt_bsr_super_f64)
     with torch.cuda.device(x.device):
+        plan = row_gather.launch_plan(split, x, 1, torch.float64)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(row_ptr.data_ptr(), cols.data_ptr(), val_off.data_ptr(),
-                  vals.data_ptr(), x.data_ptr(), y.data_ptr(), m, b,
+                  vals.data_ptr(), x.data_ptr(), y.data_ptr(), m, b, plan,
                   stream)
     cuda_build.raise_on(code, fn.__name__)
     tracing.count("spmm.launches.K2")  # f32 and f64
@@ -388,6 +442,8 @@ class SuperBsrOperator:
         self._entry_keys = entry_rc[0] * n + entry_rc[1]
         self._row_ptr, self._cols, self._val_off = row_gather.row_index(
             entry_rc, np.arange(self.nnz), n, self.nnz, vals.device)
+        # the runs K1/K2 split into units (structure only: edits keep it)
+        self._split = row_gather.split_plan(self._row_ptr, vals.device)
 
     @property
     def shape(self):
@@ -396,6 +452,16 @@ class SuperBsrOperator:
     @property
     def device(self) -> torch.device:
         return self.vals.device
+
+    @property
+    def split_entries(self) -> int:
+        """Entries that K1/K2 sum in split units (``spmm.split_entries``)."""
+        return self._split.entries
+
+    @property
+    def split_units(self) -> int:
+        """K1/K2's split units a product (``spmm.split_units``)."""
+        return self._split.units.shape[0]
 
     def storage_bytes(self) -> int:
         return self.vals.numel() * self.vals.element_size()
@@ -478,8 +544,8 @@ class SuperBsrOperator:
             squeeze = x.ndim == 1
             xc = self._prepare(x[:, None] if squeeze else x)
             index = (self._row_ptr, self._cols, self._val_off, self.vals, xc)
-            y = tile_spmm_bf16(*index, self._terms()) if self._terms() \
-                else tile_spmm_full(*index)
+            y = tile_spmm_bf16(*index, self._terms(), split=self._split) \
+                if self._terms() else tile_spmm_full(*index, split=self._split)
             y = y.to(x.dtype)
             return y[:, 0] if squeeze else y
 

@@ -550,6 +550,9 @@ def greedy_krylov(
     # entries the operator holds beyond A's: make mode's candidate slots
     tracing.count("sweep.slots", F.operator.nnz - A.nnz)
     tracing.count("spmm.operator_bytes", tracing.tensor_bytes(F.operator))
+    # entries and units of the runs the kernels split (super-tile operator)
+    for name in ("split_entries", "split_units"):
+        tracing.count(f"spmm.{name}", getattr(F.operator, name, 0))
     sweep = tracing.count("sweep.builds")  # the sweep's id in the process
     score_kw = dict(sign=rule.sign, fun=fun, tol=tol, rescale=float(rescale),
                     schedule=schedule, shift=shift)

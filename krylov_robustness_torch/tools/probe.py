@@ -16,13 +16,18 @@ scoring round.
 
 ``gather``: the four kernels that share the row gather of
 ``csrc/row_gather.cuh`` (K1, K2, K3 at b ≥ 32, K4) at the smoke's phase-3
-shapes, built into ``DIR/gather/<variant>/`` (default ``build/probe``)
+shapes, and K1 on the benchmark's soc-Epinions1-scale stand-in at b = 500,
+built into ``DIR/gather/<variant>/`` (default ``build/probe``)
 from the checkout's sources
 with their constants and types as they are and as each ``--variants`` entry
-sets them (``UNROLL=8``, ``ROWS_PER_WARP=8,WARPS=2``, ``K2F32Sum=float``),
-each held against the plain version and timed with CUDA events in turns
-(every variant, then again in reverse order; the better time counts) beside
-cuSPARSE; then each variant's K2 f32 error on the hub graph at b = 500 on
+sets them (``UNROLL=8``, ``ROWS_PER_WARP=8,WARPS=2``, ``K2F32Sum=float``,
+``SPLIT_ENTRIES=256``: K1 and K2 then take a split plan built for that
+limit), each held against the plain version and timed with CUDA events in
+turns (every variant, then again in reverse order; the better time counts)
+beside cuSPARSE and, for K1 and K2, beside the constants as they are with
+no split plan ("no split"); K1's and K2's lines give each variant's gather
+rate (nnz·b·sizeof(x) over its time) and the share of entries its plan
+splits. Then each variant's K2 f32 error on the hub graph at b = 500 on
 the smoke's second x.
 
 ``weighted``: ``torch.profiler`` over one ``fun_and_grad`` of the smoke's
@@ -50,6 +55,7 @@ import numpy as np
 import torch
 
 from ..bench import hub_graph, road_graph
+from ..ops import row_gather
 from ..utils import tracing
 
 
@@ -118,10 +124,13 @@ def probe_solvers(smoke, dev) -> None:
 
 
 GATHER_VARIANTS = ("UNROLL=2", "UNROLL=8", "ROWS_PER_WARP=1",
-                   "ROWS_PER_WARP=8", "WARPS=1", "WARPS=2", "WARPS=8")
+                   "ROWS_PER_WARP=8", "WARPS=1", "WARPS=2", "WARPS=8",
+                   "SPLIT_ENTRIES=64", "SPLIT_ENTRIES=256")
+NO_SPLIT = "no split"  # the constants as they are, K1 and K2 without a plan
 # each source's row-gather entries (all take six pointers, then n and b,
-# then the stream; K1 takes the bf16 terms after b) and the kernel each
-# launches: {f} is the dtype, f32 or f64
+# then the stream; K1 takes the bf16 terms after b, K1 and K2 a split plan
+# before the stream) and the kernel each launches: {f} is the dtype, f32 or
+# f64
 GATHER_ENTRIES = {"bsr_super": {"K1": "krt_bsr_super_bf16",
                                 "K2": "krt_bsr_super_{f}"},
                   "banded_ell": {"K3": "krt_banded_gather_{f}"},
@@ -164,6 +173,7 @@ def _gather_libs(out: Path, variants) -> dict:
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     libs = {}
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    plan = [ctypes.POINTER(row_gather.CSplitPlan)]
     for name, src, lib, proc in builds:
         log, _ = proc.communicate()
         if proc.returncode != 0:
@@ -172,11 +182,24 @@ def _gather_libs(out: Path, variants) -> dict:
         for kernel, entry in GATHER_ENTRIES[src].items():
             for f in ("f32", "f64"):
                 fn = getattr(dll, entry.format(f=f))
-                fn.argtypes = [ptr] * 6 + [i32] * (3 if kernel == "K1"
-                                                   else 2) + [ptr]
+                fn.argtypes = [ptr] * 6 + [i32] * (
+                    3 if kernel == "K1" else 2) + (
+                    plan if src == "bsr_super" else []) + [ptr]
                 fn.restype = i32
             libs.setdefault(name, {})[kernel] = (dll, entry)
+    libs[NO_SPLIT] = libs["as-is"]
     return libs
+
+
+def _split_args(variant: str) -> tuple[int, int] | None:
+    """(limit, run) of the split plan K1 and K2 take in ``variant``, as its
+    SPLIT_ENTRIES and ROWS_PER_WARP set them; None for no plan."""
+    if variant == NO_SPLIT:
+        return None
+    limit = re.search(r"SPLIT_ENTRIES=(\d+)", variant)
+    run = re.search(r"ROWS_PER_WARP=(\d+)", variant)
+    return (int(limit.group(1)) if limit else row_gather.SPLIT_ENTRIES,
+            int(run.group(1)) if run else row_gather.ROWS_PER_WARP)
 
 
 def probe_gather(smoke, dev, out: Path, variants) -> None:
@@ -192,10 +215,13 @@ def probe_gather(smoke, dev, out: Path, variants) -> None:
         p = rcm_permutation(A)
         return sp.csr_matrix(A, dtype=np.float64)[p, :].tocsc()[:, p].tocsr()
 
-    graphs = {"road": rcm(road_graph()), "hub": rcm(hub_graph())}
+    graphs = {"road": rcm(road_graph()), "hub": rcm(hub_graph()),
+              "epinions": smoke.epinions_graph()}
     f32, f64 = torch.float32, torch.float64
     # (graph, kernel, label) → (operator, widths)
     cases = {
+        ("epinions", "K1", "bf16x2"): (lambda A: SuperBsrOperator(
+            A, dtype=f32, device=dev, mode="bf16x2"), (500,)),
         ("hub", "K1", "bf16x2"): (lambda A: SuperBsrOperator(
             A, dtype=f32, device=dev, mode="bf16x2"), (500, 520)),
         ("road", "K1", "bf16x2"): (lambda A: SuperBsrOperator(
@@ -218,10 +244,20 @@ def probe_gather(smoke, dev, out: Path, variants) -> None:
             A, dtype=f64, device=dev), (512,)),
     }
 
+    plans = {}  # (operator, limit, run) → its split plan
+
+    def split_of(name, op):
+        args = _split_args(name)
+        if args is None:
+            return None
+        if (id(op), *args) not in plans:
+            plans[id(op), *args] = row_gather.split_plan(op._row_ptr, dev,
+                                                         *args)
+        return plans[id(op), *args]
+
     def launch(name, kernel, op, x):
         """One product through variant ``name``'s entry of ``kernel``."""
         y = torch.empty_like(x)
-        stream = torch.cuda.current_stream(dev).cuda_stream
         if kernel == "K4":
             row_ptr, cols, val_off, vals = (op.row_ptr, op.cols, op.val_off,
                                             op.ablocks)
@@ -231,20 +267,25 @@ def probe_gather(smoke, dev, out: Path, variants) -> None:
         dll, entry = libs[name][kernel]
         fn = getattr(dll, entry.format(f="f32" if x.dtype == f32 else "f64"))
         terms = (op._terms(),) if kernel == "K1" else ()
+        plan = (row_gather.launch_plan(
+            split_of(name, op), x, op._terms() or 1,
+            f32 if kernel == "K1" else f64),) if kernel in ("K1", "K2") \
+            else ()
+        stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(row_ptr.data_ptr(), cols.data_ptr(), val_off.data_ptr(),
                   vals.data_ptr(), x.data_ptr(), y.data_ptr(), op.n,
-                  x.shape[1], *terms, stream)
+                  x.shape[1], *terms, *plan, stream)
         if code != 0:
             raise RuntimeError(f"{name} {kernel}: launch failed with CUDA "
                                f"error {code}")
         return y
 
-    def held(kernel, op, x):
+    def held(kernel, op, x, names):
         """variant → max|kernel − plain| / max|plain| on x."""
         yp = op.matmul_plain(x)
         scale = float(yp.abs().max())
         return {name: float((launch(name, kernel, op, x) - yp).abs().max())
-                / scale for name in libs}
+                / scale for name in names}
 
     # x as the smoke's phase 3 draws it for each graph, so that each case is
     # held on the inputs the smoke holds it on
@@ -254,25 +295,39 @@ def probe_gather(smoke, dev, out: Path, variants) -> None:
     for (graph, kernel, label), (make, widths) in cases.items():
         A = graphs[graph]
         op = make(A)
+        names = [name for name in libs
+                 if name != NO_SPLIT or kernel in ("K1", "K2")]
         for b in widths:
             x = torch.as_tensor(x64[graph][:, :b], device=dev,
                                 dtype=f64 if label == "f64" else f32)
-            errs = held(kernel, op, x)
+            errs = held(kernel, op, x, names)
             for name, err in errs.items():
                 smoke.check(err <= smoke.GATES[label],
                             f"gather {name} {graph} {kernel} {label} b={b}: "
                             f"{err:.3e}")
-            times = {name: [] for name in libs}
-            for order in (list(libs), list(libs)[::-1]):
+            times = {name: [] for name in names}
+            for order in (names, names[::-1]):
                 for name in order:
                     times[name].append(smoke.cuda_ms(
                         lambda: launch(name, kernel, op, x), reps=15))
             lib_ms = smoke.library_ms(A, x)
+            gathered = op.nnz * b * x.element_size()
+
+            def split_share(name):
+                plan = split_of(name, op) if kernel in ("K1", "K2") else None
+                return "" if plan is None else (
+                    f", split {plan.entries / op.nnz:.1%} in "
+                    f"{plan.units.shape[0]} units")
+
             print(f"[gather] {graph} {kernel} {label} b={b}: cusparse "
                   f"{lib_ms:.4f} ms; " + "; ".join(
-                      f"{name} {min(t):.4f} ms (err {errs[name]:.3e})"
+                      f"{name} {min(t):.4f} ms (err {errs[name]:.3e}"
+                      + (f", {gathered / min(t) / 1e9:.2f} TB/s"
+                         f"{split_share(name)}"
+                         if kernel in ("K1", "K2") else "") + ")"
                       for name, t in times.items()))
         del op
+        plans.clear()
         torch.cuda.empty_cache()
     # hub K2 f32 at b = 500 on the smoke's second draw of x, where a
     # sequential f32 sum over a hub row sat at the gate: every variant's
@@ -280,7 +335,7 @@ def probe_gather(smoke, dev, out: Path, variants) -> None:
     op = cases["hub", "K2", "f32"][0](graphs["hub"])
     x = torch.as_tensor(np.random.default_rng(2).standard_normal((op.n, 500)),
                         device=dev, dtype=f32)
-    errs = held("K2", op, x)
+    errs = held("K2", op, x, list(libs))
     smoke.check(errs["as-is"] <= smoke.GATES["f32"],
                 f"gather hub K2 f32 b=500 second x: {errs['as-is']:.3e}")
     print("[gather] hub K2 f32 b=500 second x (seed 2): " + "; ".join(

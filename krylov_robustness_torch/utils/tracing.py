@@ -61,9 +61,16 @@ already holds on the host: none adds a device synchronisation or a copy.
   make mode's explicit-zero candidate slots (2·(Q + k) a make sweep, both
   triangles of each candidate; 0 a break sweep);
 - ``spmm.operator_bytes``: the bytes a sweep's scored operator holds
-  (:func:`tensor_bytes`: values and index of the super-tile operator, rows,
-  cols and vals of COO, the ELL tables and row index of the banded one),
-  added at each build; over ``sweep.builds``, the bytes of one build.
+  (:func:`tensor_bytes`: values, row index and split plan of the
+  super-tile operator, rows, cols and vals of COO, the ELL tables and row
+  index of the banded one), added at each build; over ``sweep.builds``,
+  the bytes of one build;
+- ``spmm.split_entries``, ``spmm.split_units``: the entries of the runs
+  that a sweep's super-tile operator sums in split units (K1/K2, b ≥ 32),
+  and those units, added at each build (0 for every other operator and
+  where no run of rows holds more than ``ops/row_gather.py``'s
+  ``SPLIT_ENTRIES``); over the operators' entries, the share of entries on
+  the split path.
 """
 
 from __future__ import annotations
@@ -125,13 +132,15 @@ def count(name: str, n: int | float = 1) -> int | float:
 
 
 def tensor_bytes(obj) -> int:
-    """Bytes of the tensors that ``obj`` holds as attributes, each storage
-    counted once (a view shares its base's), from sizes the host keeps."""
+    """Bytes of the tensors that ``obj`` holds as attributes, or in a tuple
+    it holds as one (a split plan), each storage counted once (a view shares
+    its base's), from sizes the host keeps."""
     storages = {}
     for v in vars(obj).values():
-        if isinstance(v, torch.Tensor):
-            st = v.untyped_storage()
-            storages[(v.device, st.data_ptr())] = st.nbytes()
+        for t in v if isinstance(v, tuple) else (v,):
+            if isinstance(t, torch.Tensor):
+                st = t.untyped_storage()
+                storages[(t.device, st.data_ptr())] = st.nbytes()
     return sum(storages.values())
 
 

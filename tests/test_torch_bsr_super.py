@@ -14,7 +14,7 @@ import torch
 import jax.numpy as jnp
 
 from helpers import random_graph
-from krylov_robustness_torch.ops import bsr_super, cuda_build
+from krylov_robustness_torch.ops import bsr_super, cuda_build, row_gather
 from krylov_robustness_torch.ops.bsr_super import (
     SuperBsrOperator,
     bf16_split,
@@ -373,3 +373,200 @@ def test_interop_super_bsr_from_jax_packing():
     np.testing.assert_array_equal(got, want)
     yj = np.asarray(jop @ jnp.asarray(x))
     assert np.abs(got - yj).max() <= 1e-6 * np.abs(yj).max()
+
+
+# -- split plans (ops/row_gather.py::split_plan) ---------------------------
+L = row_gather.SPLIT_ENTRIES
+R = row_gather.ROWS_PER_WARP
+
+
+def _chung_lu_hubs(n: int = 3000, draws: int = 30000, seed: int = 11):
+    """A Chung–Lu graph with hubs (expected degrees ~ (i + 3)^-0.9, the
+    largest 938) in its own labels: rows past several L."""
+    rng = np.random.default_rng(seed)
+    w = (np.arange(n) + 3.0) ** -0.9
+    src, dst = rng.choice(n, draws, p=w / w.sum()), rng.choice(
+        n, draws, p=w / w.sum())
+    A = sp.coo_matrix((np.ones(draws), (src, dst)), shape=(n, n))
+    A = sp.csr_matrix(((A + A.T) > 0).astype(np.float64))
+    A.setdiag(0)
+    A.eliminate_zeros()
+    return A
+
+
+def _star_row(length: int = 3000):
+    """Node 0 joined to ``length`` others: row 0 holds ``length`` entries."""
+    n = length + 1
+    A = sp.coo_matrix((np.ones(length), (np.zeros(length, int),
+                                         np.arange(1, n))), shape=(n, n))
+    return sp.csr_matrix(A + A.T)
+
+
+def _path_with_chords(n: int = 2000, seed: int = 3):
+    """A road network's shape: a path and short chords."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(n - 1)
+    src = np.concatenate([i, rng.integers(0, n - 300, n // 10)])
+    dst = np.concatenate([i + 1, src[n - 1:] + rng.integers(2, 299, n // 10)])
+    A = sp.coo_matrix((np.ones(len(src)), (src, dst)), shape=(n, n))
+    return sp.csr_matrix(((A + A.T) > 0).astype(np.float64))
+
+
+def _plan_graph(kind):
+    """(row_ptr, the rows of make mode's explicit-zero slots or None)."""
+    if kind == "hubs":
+        return _chung_lu_hubs().indptr, None
+    if kind == "star":
+        return _star_row().indptr, None
+    # make: explicit-zero slots in both triangles, 10 of them in the
+    # largest hub's row
+    A = _chung_lu_hubs()
+    rng = np.random.default_rng(12)
+    hub = int(np.argmax(np.diff(A.indptr)))
+    r = np.concatenate([np.full(40, hub), rng.integers(0, A.shape[0], 40)])
+    c = rng.integers(0, A.shape[0], 80)
+    keep = (r != c) & (np.asarray(A[r, c]).ravel() == 0)
+    r, c = r[keep], c[keep]
+    C = sp.coo_matrix(A)
+    M = sp.coo_matrix(
+        (np.concatenate([C.data, np.zeros(2 * len(r))]),
+         (np.concatenate([C.row, r, c]), np.concatenate([C.col, c, r]))),
+        shape=A.shape).tocsr()
+    op = SuperBsrOperator(M, dtype=torch.float32, device="cpu")
+    assert op.nnz == A.nnz + 2 * len(r) and (r == hub).sum() >= 10
+    return op._row_ptr.numpy(), op.entry_index(np.concatenate([r, c]),
+                                               np.concatenate([c, r]))
+
+
+def _hits(rp, plan):
+    """How often each entry is summed: by the row groups (a run of at most
+    L entries) or by a unit."""
+    rp = np.asarray(rp, np.int64)
+    n = len(rp) - 1
+    hits = np.zeros(rp[-1], int)
+    for r0 in range(0, n, R):
+        e0, e1 = rp[r0], rp[min(r0 + R, n)]
+        if e1 - e0 <= L:
+            hits[e0:e1] += 1
+    for row, begin, end in plan.units.numpy():
+        assert rp[row] <= begin <= end <= rp[row + 1]
+        hits[begin:end] += 1
+    return hits
+
+
+@pytest.mark.parametrize("kind", ["hubs", "star", "make"])
+def test_split_plan_covers_every_entry_once(kind):
+    """Every entry lies in one unit or in one run of the row groups; no
+    unit holds more than L entries; a cut row's pieces are contiguous, in
+    CSR order, of balanced length, and come first, row by row; every other
+    row of a split run is one unit whole. In make mode the explicit-zero
+    slots are covered as the graph's entries are."""
+    rp, slots = _plan_graph(kind)
+    plan = row_gather.split_plan(torch.as_tensor(rp), "cpu")
+    units = plan.units.numpy()
+    assert plan.units.dtype == plan.cut_end.dtype == torch.int32
+    hits = _hits(rp, plan)
+    np.testing.assert_array_equal(hits, 1)
+    sizes = units[:, 2] - units[:, 1]
+    assert sizes.max() <= L and plan.pieces == int(plan.cut_end[-1])
+    assert plan.entries == sizes.sum() and plan.limit == L
+    end = plan.cut_end.numpy()
+    first = np.concatenate([[0], end[:-1]])
+    lens = np.diff(rp)
+    for f, e in zip(first, end):
+        row = units[f, 0]
+        assert (units[f:e, 0] == row).all() and lens[row] > L
+        assert e - f == -(-lens[row] // L)
+        assert units[f, 1] == rp[row] and units[e - 1, 2] == rp[row + 1]
+        np.testing.assert_array_equal(units[f + 1:e, 1], units[f:e - 1, 2])
+        assert np.ptp(sizes[f:e]) <= 1
+    assert (np.diff(units[first, 0]) > 0).all()
+    whole = units[plan.pieces:]
+    assert (np.diff(whole[:, 0]) > 0).all() and (lens[whole[:, 0]] <= L).all()
+    np.testing.assert_array_equal(whole[:, 1], rp[whole[:, 0]])
+    np.testing.assert_array_equal(whole[:, 2], rp[whole[:, 0] + 1])
+    if slots is not None:
+        in_units = np.zeros(len(hits), bool)
+        for _, begin, stop in units:
+            in_units[begin:stop] = True
+        assert in_units[slots].any()
+
+
+@pytest.mark.parametrize("limit", [L // 2, L])
+def test_split_plan_cuts_a_long_row(limit):
+    """A row of 3,000 entries is cut into ⌈3000 / limit⌉ pieces; the other
+    three rows of its run are one unit each."""
+    plan = row_gather.split_plan(_star_row().indptr, "cpu", limit)
+    assert plan.pieces == -(-3000 // limit) and len(plan.cut_end) == 1
+    np.testing.assert_array_equal(plan.units[plan.pieces:, 0], [1, 2, 3])
+    assert plan.entries == 3003 and (plan.limit, plan.run) == (limit, R)
+
+
+@pytest.mark.parametrize("lengths,units", [
+    ([L // 4] * 4 + [3] * 9, 0),  # the heaviest run holds exactly L
+    ([L, 0, 0, 0, 7], 0),
+    ([0, L + 1, 0, 0, 7], 5),     # one entry more: 2 pieces, 3 whole rows
+    ([0, 0, 0, 0, 0], 0),
+])
+def test_split_plan_splits_runs_past_the_limit(lengths, units):
+    rp = np.concatenate([[0], np.cumsum(lengths)])
+    plan = row_gather.split_plan(rp, "cpu")
+    assert plan.units.shape == (units, 3)
+    assert plan.pieces == (2 if units else 0)
+
+
+def test_split_plan_is_empty_on_a_road_network():
+    """A path with chords (and a banded matrix) holds no run past L: the
+    operator's plan is empty, holds no bytes, and its counters read 0."""
+    for A in (_path_with_chords(), banded_graph(n=700, max_off=50, extra=120,
+                                                weighted=False)):
+        op = SuperBsrOperator(A, dtype=torch.float32, device="cpu")
+        assert op.split_units == op.split_entries == op._split.pieces == 0
+        assert op._split.units.numel() == op._split.cut_end.numel() == 0
+
+
+def test_operator_holds_its_split_plan():
+    """The hub operator's plan is built from its row index, shared by
+    ``with_values``, and counted in its bytes."""
+    A = _chung_lu_hubs()
+    op = SuperBsrOperator(A, dtype=torch.float32, device="cpu")
+    want = row_gather.split_plan(A.indptr, "cpu")
+    np.testing.assert_array_equal(op._split.units, want.units)
+    np.testing.assert_array_equal(op._split.cut_end, want.cut_end)
+    assert op.split_units == len(want.units) > 0
+    assert op.split_entries == want.entries > 0
+    assert tracing.tensor_bytes(op) == A.nnz * (2 + 8) + (
+        A.shape[0] + 1) * 4 + 4 * (want.units.numel() + want.cut_end.numel())
+    assert op.with_values(op.vals * 2)._split is op._split
+
+
+@pytest.mark.parametrize("mode,dtype,gate", [
+    ("bf16x2", torch.float32, 2.0 ** -18),
+    ("bf16x3", torch.float32, 2.0 ** -18),
+    # two orders of f64 sums over rows of up to 938 entries part by a few
+    # units of the last place of max|y| (1.5e-15 here)
+    ("f32", torch.float64, 2.0 ** -48),
+    ("f32", torch.float32, 2.0 ** -23),
+])
+def test_split_twin_matches_the_plain_version(mode, dtype, gate):
+    """The plain twin of K1 and K2 in the split kernels' order (a cut row
+    as the sum of its pieces' sums) agrees with the CSR-order plain version
+    relative to max|y|, on the rows the plan cuts; every other row is the
+    plain version's, bit for bit, and b < 32 takes no plan."""
+    A = _chung_lu_hubs()
+    op = SuperBsrOperator(A, dtype=dtype, device="cpu", mode=mode)
+    x = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        (A.shape[0], 40))).to(dtype)
+    index = (op._row_ptr, op._cols, op._val_off, op.vals)
+    terms = op._terms()
+    plain = op.matmul_plain(x)
+    for b in (40, 16):
+        got = bsr_super.split_spmm_plain(*index, x[:, :b], op._split, terms)
+        want = plain[:, :b]
+        cut = np.zeros(A.shape[0], bool)
+        if b >= 32:
+            cut[op._split.units[:op._split.pieces, 0].numpy()] = True
+        assert cut.sum() == (len(op._split.cut_end) if b >= 32 else 0)
+        np.testing.assert_array_equal(got[~cut], want[~cut])
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= gate, err

@@ -182,7 +182,9 @@ def test_operator_bytes_grow_by_each_build(graph, backend):
     operator's f64 values in CSR order, int32 columns, value offsets and
     row pointers (no tile); the banded operator's (K, n) int32 columns and
     f64 values (K the largest row) and its int32 row index; COO's int64
-    rows and columns and f64 values."""
+    rows and columns and f64 values. A path with chords holds no run of
+    rows that K1/K2 split, so spmm.split_entries and spmm.split_units grow
+    by 0 with every backend."""
     A, c, tol = graph
     n, nnz = A.shape[0], A.nnz
     K = int(np.diff(A.indptr).max())
@@ -195,9 +197,48 @@ def test_operator_bytes_grow_by_each_build(graph, backend):
                       dtype=torch.float64, backend=backend, fused_steps=0,
                       device="cpu")
     now = tracing.counters()
-    grew = {k: now[k] - before.get(k, 0) for k in ("spmm.operator_bytes",
-                                                   "sweep.builds")}
-    assert grew == {"spmm.operator_bytes": 2 * want, "sweep.builds": 2}
+    grew = {k: now[k] - before.get(k, 0) for k in (
+        "spmm.operator_bytes", "sweep.builds", "spmm.split_entries",
+        "spmm.split_units")}
+    assert grew == {"spmm.operator_bytes": 2 * want, "sweep.builds": 2,
+                    "spmm.split_entries": 0, "spmm.split_units": 0}
+
+
+@pytest.mark.parametrize("backend", ["bsr", "coo"])
+def test_split_counters_read_each_build(monkeypatch, backend):
+    """On a path of 600 nodes with a hub of 300 neighbours, each build of
+    the super-tile operator adds its split plan to spmm.split_entries (the
+    hub's 300 entries and the rest of its run of rows) and
+    spmm.split_units (at least the hub row's two pieces); COO adds 0."""
+    n = 600
+    rng = np.random.default_rng(9)
+    i = np.arange(n - 1)
+    src = np.concatenate([i, np.zeros(300, int)])
+    dst = np.concatenate([i + 1, rng.choice(np.arange(2, n), 300,
+                                            replace=False)])
+    A = sp.coo_matrix((np.ones(len(src)), (src, dst)), shape=(n, n))
+    A = sp.csr_matrix(((A + A.T) > 0).astype(np.float64))
+    lam = float(np.linalg.eigvalsh(A.toarray()).max())
+    tol = 1e-6 * float(np.exp(lam))
+    calls = []
+    real = tracing.count
+
+    def recorded(name, n=1):
+        calls.append((name, n))
+        return real(name, n)
+
+    monkeypatch.setattr(tracing, "count", recorded)
+    for _ in range(2):
+        greedy_krylov(A, 1, Q, compute_centrality_host(A, "eig"),
+                      order="min", tol=tol, mode="break",
+                      dtype=torch.float64, backend=backend, fused_steps=0,
+                      device="cpu")
+    entries, units = ([n for m, n in calls if m == name] for name in (
+        "spmm.split_entries", "spmm.split_units"))
+    if backend == "coo":
+        assert entries == units == [0, 0]
+        return
+    assert entries[0] == entries[1] > 300 and units[0] == units[1] >= 3
 
 
 def test_sturm_span_carries_batch_and_order():
