@@ -7,7 +7,10 @@ RCM-permuted) matrix as an ELL of K = max-degree slots per row, slot-major
 ``(K, n)`` tables ``cols`` and ``vals``: slot k of row r is the k-th entry of
 row r in sorted CSR order, padding slots hold ``val = 0`` and ``col = r``.
 So its entries are addressed exactly as the JAX operator addresses them
-(``_entry_pos = (ks, rows)`` in CSR order).
+(``_entry_pos = (ks, rows)`` in CSR order). An explicit zero of the CSR
+matrix is a stored entry like any other: greedy's make mode hands the
+operator its candidate slots as zeros, K counts them, and a commit writes
+its value into them (``set_edge``).
 
 K3 (``csrc/banded_ell.cu``) computes ``y = A @ x`` over that ELL and
 replaces ``_banded_kernel``. From b = :data:`GATHER_MIN_B` on it is the row
@@ -168,9 +171,11 @@ class BandedEllOperator:
     """RCM-banded ELL SpMM operator over a frozen sparsity structure.
 
     Works in permuted node space: build it with the already-RCM-permuted
-    matrix (:func:`make_operator` and greedy's banded backend do). ``matmul``
-    on (n, b) blocks or (n,) vectors; ``update_entry_values`` / ``set_edge``
-    edit values of existing entries in place. No ``todense``: at n ≤ 130 the
+    matrix (:func:`make_operator` and greedy's banded backend do). Every
+    entry of the CSR matrix is stored, explicit zeros too (make mode's
+    candidate slots), and counts in K and ``nnz``. ``matmul`` on (n, b)
+    blocks or (n,) vectors; ``update_entry_values`` / ``set_edge`` edit
+    values of stored entries in place. No ``todense``: at n ≤ 130 the
     scorer runs the phase lane on it, as the JAX package does.
     """
 

@@ -317,7 +317,9 @@ class _ShardedBsrFrozenMatrix(_SlotAdapter):
 class _BandedAdapter(_Adapter):
     """Adapter over an RCM-relabeled operator that edits its own entries
     (the banded operator; the super-tile one through :class:`_BsrAdapter`):
-    original node ids map through the permutation for scoring and edits."""
+    original node ids map through the permutation for scoring and edits. A
+    make commit writes 1 into both of its candidate's slots, which the
+    operator holds as explicit zeros until then."""
 
     def set_edge(self, i: int, j: int, value: float):
         self.op.set_edge(int(self.pinv[i]), int(self.pinv[j]), value)
@@ -443,25 +445,33 @@ def choose_operator(A, top, Q: int, mode: str, backend: str,
                     device: torch.device):
     """The scored operator, as the JAX package chooses it
     (greedy.py:595-648), with "the device is CUDA" in place of "the backend
-    is the TPU" and without its cap on the tiles' bytes (the super-tile
+    is the TPU", without its cap on the tiles' bytes (the super-tile
     operator holds its values in CSR order, so its storage is the
-    nonzeros): super tiles for ``backend='bsr'``, or for ``'auto'`` at
-    2Q ≥ 256; otherwise, in break mode only, the banded operator while the
-    RCM band fits (``banded_spmm.banded_fits``); otherwise COO. ``'coo'``,
-    and ``'auto'`` off CUDA, take COO. Allocates nothing on the device.
+    nonzeros), and with make mode on the banded operator too: super tiles
+    for ``backend='bsr'``, or for ``'auto'`` at 2Q ≥ 256; otherwise the
+    banded operator while the RCM band of A with make mode's candidate
+    slots fits (``banded_spmm.banded_fits``, under A's own RCM order);
+    otherwise COO. ``'coo'``, and ``'auto'`` off CUDA, take COO. Allocates
+    nothing on the device.
+
+    The JAX package takes the banded operator in break mode only. A make
+    sweep's Q + k candidates join a few of the most central nodes, which a
+    road graph's RCM order keeps near each other, so their slots leave its
+    band within the kernel's windows, and the port takes K3 for make at
+    2Q < 256 where the JAX package takes COO.
 
     Returns (kind, perm, A_aug): kind is 'bsr', 'banded' or 'coo'; A_aug is
-    A with make mode's candidate slots (super tiles only)."""
+    A with make mode's candidate slots as explicit zeros (None for COO)."""
     from ..ops.banded_spmm import banded_fits, rcm_permutation
 
-    adds = _ModeRule.of(mode).adds
     if backend == "coo" or (backend == "auto" and device.type != "cuda"):
         return "coo", None, None
     perm = rcm_permutation(A)
+    A_aug = _with_zero_slots(A, top if _ModeRule.of(mode).adds else None)
     if backend == "bsr" or (backend == "auto" and 2 * Q >= 256):
-        return "bsr", perm, _with_zero_slots(A, top if adds else None)
-    if not adds and banded_fits(A, perm):
-        return "banded", perm, None
+        return "bsr", perm, A_aug
+    if banded_fits(A_aug, perm):
+        return "banded", perm, A_aug
     return "coo", None, None
 
 
@@ -493,13 +503,16 @@ def greedy_krylov(
     the surviving Q candidates and commit the best edge.
 
     ``backend``: 'coo' (gather + ``index_add_`` SpMM), 'bsr' (RCM +
-    super-tile kernels K1/K2), 'banded' (RCM + banded-ELL kernel K3, break
-    mode), 'sharded' (the row-partitioned operator over the ranks of
-    ``mesh``, with the candidate batch split over a 'cands' axis; pass
-    ``mesh`` or one is built over every rank of the process group),
+    super-tile kernels K1/K2), 'banded' (RCM + banded-ELL kernel K3, make
+    mode's candidate slots among its entries), 'sharded' (the
+    row-partitioned operator over the ranks of ``mesh``, with the candidate
+    batch split over a 'cands' axis; pass ``mesh`` or one is built over
+    every rank of the process group),
     'sharded_bsr' (the same partitioning, each shard's product K1/K2 over
     its super-tiles, globally RCM-permuted), or 'auto' — on CUDA the JAX
-    package's choice on the TPU (:func:`choose_operator`), COO otherwise.
+    package's choice on the TPU but for make mode at 2Q < 256, which takes
+    the banded operator where its band fits (:func:`choose_operator`), COO
+    otherwise.
     The sharded backends run on every rank of the mesh, each holding its
     row block and repeating the host and Krylov work on replicated blocks;
     ``device`` is the rank's device. The super-tile, banded and
@@ -577,22 +590,25 @@ def greedy_krylov(
 
 def _single_device_operator(A, top, Q: int, rule: _ModeRule, backend: str,
                             dtype, dev):
-    """The adapter over the operator :func:`choose_operator` picks."""
+    """The adapter over the operator :func:`choose_operator` picks, built
+    inside the span ``kr:sweep.operator|kind|slots`` (slots: the explicit
+    zeros make mode adds, both triangles of each candidate)."""
     kind, perm, A_aug = choose_operator(A, top, Q, rule.mode, backend, dev)
-    if kind == "bsr":
-        from ..ops.bsr_super import SuperBsrOperator
+    with tracing.span("sweep.operator", kind,
+                      2 * len(top) if rule.adds else 0):
+        if kind == "coo":
+            return _FrozenStructureMatrix(A, top if rule.adds else None,
+                                          dtype=dtype, device=dev)
+        Ap, pinv = _relabel(A_aug, perm)  # COO space: keeps the slots
+        if kind == "bsr":
+            from ..ops.bsr_super import SuperBsrOperator
 
-        Ap, pinv = _relabel(A_aug, perm)
-        return _BsrAdapter(SuperBsrOperator(Ap, dtype=dtype, device=dev),
-                           pinv)
-    if kind == "banded":
+            return _BsrAdapter(SuperBsrOperator(Ap, dtype=dtype, device=dev),
+                               pinv)
         from ..ops.banded_spmm import BandedEllOperator
 
-        Ap, pinv = _relabel(A, perm)
         return _BandedAdapter(BandedEllOperator(Ap, dtype=dtype, device=dev),
                               pinv)
-    return _FrozenStructureMatrix(A, top if rule.adds else None, dtype=dtype,
-                                  device=dev)
 
 
 def _replay_checkpoint(F, rule: _ModeRule, tally: _Tally) -> int:

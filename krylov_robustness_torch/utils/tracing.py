@@ -16,6 +16,9 @@ The spans, outermost first (the greedy path's layers):
 - ``kr:sweep.candidates|mode|num``: inside it, the choice of the sweep's
   ``num`` = Q + k candidates (``find_top_edges`` in break mode,
   ``find_top_missing_edges`` in make mode);
+- ``kr:sweep.operator|kind|slots``: inside it too, the build of a
+  single-device sweep's operator, ``kind`` 'bsr', 'banded' or 'coo',
+  ``slots`` the explicit zeros make mode adds (2·(Q + k), 0 in break mode);
 - ``kr:step|sweep|step``: one budget step, or one fused block, closed
   before the sweep's checkpoint is saved;
 - ``kr:scorer|batch``: one scoring call, ``trace_fun_update_edges``;
@@ -35,6 +38,10 @@ update, unlocked: the port never counts from a worker thread);
 already holds on the host: none adds a device synchronisation or a copy.
 
 - ``spmm.launches.K1`` … ``K4``: launches of each hand-written kernel;
+- ``spmm.launches.coo``: products of a ``CooMatrix`` (gather and
+  ``index_add_``, no hand-written kernel), on any device; present, at 0,
+  from the import of ``ops/sparse.py`` on, so that a reader tells "none"
+  from a program that does not count them;
 - ``krylov.steps_run``: candidate block steps the device ran (the
   carry's width × steps of every ``lanczos_continue``);
 - ``krylov.steps_kernel``: of the steps run, those that went through the

@@ -13,6 +13,8 @@ import torch
 import jax.numpy as jnp
 
 from helpers import random_graph
+from krylov_robustness_torch.graphs.centrality import compute_centrality_host
+from krylov_robustness_torch.graphs.top_edges import find_top_missing_edges
 from krylov_robustness_torch.interop import banded_ell_from_arrays
 from krylov_robustness_torch.ops import banded_spmm, cuda_build
 from krylov_robustness_torch.ops.banded_spmm import (
@@ -21,6 +23,7 @@ from krylov_robustness_torch.ops.banded_spmm import (
     rcm_permutation,
 )
 from krylov_robustness_torch.ops.sparse import CooMatrix
+from krylov_robustness_torch.optimize import greedy as tgreedy
 from krylov_robustness_tpu.ops import pallas_spmm as jspmm
 from krylov_robustness_tpu.ops.sparse import CooMatrix as JCoo
 from test_pallas_spmm import banded_graph
@@ -129,6 +132,61 @@ def test_float32_matches_scipy():
     ref = A @ x.astype(np.float64)
     got = (op @ torch.as_tensor(x)).numpy()
     assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
+
+
+def _slotted(n=400, num=40):
+    """A road-like banded graph with make mode's candidate slots, as greedy
+    builds them: its top ``num`` missing edges in the 'min' order as
+    explicit zeros in both triangles, relabeled in COO space under A's own
+    RCM order. Returns (A, the slots (num, 2) in A's labels, the relabeled
+    CSR matrix with its slots, pinv)."""
+    A = banded_graph(n=n, max_off=60, extra=120, weighted=False)
+    c = compute_centrality_host(A, "eig")
+    slots = find_top_missing_edges(A, c, num, "min")
+    Ap, pinv = tgreedy._relabel(tgreedy._with_zero_slots(A, slots),
+                                rcm_permutation(A))
+    return A, slots, Ap, pinv
+
+
+def test_make_slots_are_stored_entries_and_commits_write_both():
+    """Explicit zeros of the CSR matrix are stored entries of the banded
+    operator: its nnz and K count them and each holds 0; ``set_edge`` on a
+    slot writes both triangles and nothing else; the plain product equals
+    scipy's before and after the commit; the greedy adapter's ``to_scipy``
+    drops the slots still at zero, in the original labels."""
+    A, slots, Ap, pinv = _slotted()
+    op = BandedEllOperator(Ap, dtype=torch.float64, device="cpu")
+    assert op.nnz == Ap.nnz == A.nnz + 2 * len(slots)
+    assert op.K == int(np.diff(Ap.indptr).max()) > int(
+        np.diff(A.indptr).max())
+    mine = pinv[slots]
+    both = np.concatenate([op.entry_index(mine[:, 0], mine[:, 1]),
+                           op.entry_index(mine[:, 1], mine[:, 0])])
+    before = op.entry_values()
+    assert np.all(before[both] == 0)
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (op.n, 100)))
+    np.testing.assert_allclose(op.matmul_plain(x).numpy(), Ap @ x.numpy(),
+                               rtol=1e-12, atol=1e-12)
+    i, j = (int(v) for v in slots[7])
+    F = tgreedy._BandedAdapter(op, pinv)
+    F.set_edge(i, j, 1.0)
+    after = op.entry_values()
+    hit = [op.entry_index(int(pinv[i]), int(pinv[j])),
+           op.entry_index(int(pinv[j]), int(pinv[i]))]
+    assert np.all(after[hit] == 1.0)
+    rest = np.ones(op.nnz, bool)
+    rest[hit] = False
+    np.testing.assert_array_equal(after[rest], before[rest])
+    B = Ap.tolil()
+    B[int(pinv[i]), int(pinv[j])] = B[int(pinv[j]), int(pinv[i])] = 1.0
+    np.testing.assert_allclose(op.matmul_plain(x).numpy(),
+                               B.tocsr() @ x.numpy(), rtol=1e-12, atol=1e-12)
+    want = A.tolil()
+    want[i, j] = want[j, i] = 1.0
+    got = F.to_scipy()
+    assert got.nnz == A.nnz + 2
+    _assert_same_csr(got, want.tocsr())
 
 
 def test_make_operator_off_cuda_is_coo_like_jax_off_the_tpu():

@@ -21,6 +21,8 @@ from krylov_robustness_torch.graphs.top_edges import (
     find_top_missing_edges,
 )
 from krylov_robustness_torch.ops import bsr_super
+from krylov_robustness_torch.ops.banded_spmm import banded_fits, \
+    rcm_permutation
 from krylov_robustness_torch.optimize import fused as tfused
 from krylov_robustness_torch.optimize import greedy as tgreedy
 from krylov_robustness_torch.optimize.greedy import (
@@ -192,6 +194,7 @@ class _MemoryCheckpoint:
     *(pytest.param("bsr", m, f, id=f"{m}-{f}")
       for f in (0, 3) for m in ("break", "make")),
     ("coo", "break", 0), ("coo", "make", 0), ("banded", "break", 0),
+    ("banded", "make", 0),
 ])
 def test_checkpoint_resume(graph, backend, mode, fused_steps):
     """Interrupted after 2 steps and resumed from the checkpoint, the sweep
@@ -298,15 +301,21 @@ def test_unported_backends_and_devices_raise(graph):
 
 
 @pytest.mark.parametrize("n", [120, 150])
-@pytest.mark.parametrize("backend", ["banded", "bsr"])
-def test_pallas_backends_match_jax(n, backend):
+@pytest.mark.parametrize("backend,mode", [
+    pytest.param("banded", "break", id="banded"),
+    pytest.param("bsr", "break", id="bsr"),
+    pytest.param("banded", "make", id="banded-make"),
+])
+def test_pallas_backends_match_jax(n, backend, mode):
     """tests/test_greedy.py:173-203's setup against the JAX package: at
     n = 120 the scorer runs the phase lane on these operators (they have no
-    ``todense``), at n = 150 the host-eigh lane. f64: identical edges,
-    rob_variation to rtol 1e-9, identical A_new."""
+    ``todense``), at n = 150 the host-eigh lane. Make mode on 'banded' runs
+    the banded operator with its candidate slots, where the JAX package
+    makes on COO. f64: identical edges, rob_variation to rtol 1e-9,
+    identical A_new."""
     A = path_graph(8, 60, n=120) if n == 120 else path_graph(23, 80)
     c = np.asarray(compute_centrality(CooMatrix.from_scipy(A), "eig"))
-    kw = dict(order="min", tol=1e-8, mode="break", backend=backend)
+    kw = dict(order="min", tol=1e-8, mode=mode, backend=backend)
     rj = jax_greedy_krylov(A, 3, 12, c, **kw)
     rt = greedy_krylov(A, 3, 12, c, dtype=torch.float64, device="cpu", **kw)
     np.testing.assert_array_equal(rt.edges, rj.edges)
@@ -327,9 +336,13 @@ def decision_graphs():
 
 
 def _choice(graphs, band, Q, mode, backend, fits, monkeypatch):
+    """(the port's choice, whether A's band with make mode's slots fits the
+    banded kernel under A's RCM order)."""
     A, c = graphs[band]
     top = (find_top_missing_edges if mode == "make" else find_top_edges)(
         A, c, Q + 5, "min")
+    slots_fit = banded_fits(tgreedy._with_zero_slots(A, top),
+                            rcm_permutation(A))
     if not fits:
         # tiles past the JAX package's 768 MiB cap (3,072 of 512 × 256 in
         # bf16): the port, which holds no tile, takes no notice
@@ -337,22 +350,28 @@ def _choice(graphs, band, Q, mode, backend, fits, monkeypatch):
                             lambda *a, **k: 10**6)
     kind, _, _ = tgreedy.choose_operator(A, top, Q, mode, backend,
                                          torch.device("cuda"))
-    return kind
+    return kind, slots_fit
 
 
-def _port_choice(backend, Q, jax_choice):
+def _port_choice(backend, Q, mode, slots_fit, jax_choice):
     """The port's choice where the JAX package's is ``jax_choice``: the
     same, except that a super-tile request keeps the super tiles whatever
-    their count, where the JAX package's cap sends it to banded or COO."""
+    their count, where the JAX package's cap sends it to banded or COO, and
+    that make mode without super tiles takes the banded operator where A's
+    band with the candidate slots fits it (the JAX package: COO)."""
     wants_tiles = backend == "bsr" or (backend == "auto" and 2 * Q >= 256)
-    return "bsr" if wants_tiles else jax_choice
+    if wants_tiles:
+        return "bsr"
+    if mode == "make" and backend in ("auto", "banded"):
+        return "banded" if slots_fit else "coo"
+    return jax_choice
 
 
 # expected operator per (Q, mode, band, fits), read from the JAX package's
 # choice on the TPU (greedy.py:595-648): super tiles at 2Q >= 256 while they
 # fit the cap, else banded in break mode while the band spans <= 17 windows,
-# else COO; the port's choice differs where the tiles do not fit
-# (:func:`_port_choice`)
+# else COO; the port's choice differs where the tiles do not fit and for
+# make mode at 2Q < 256 (:func:`_port_choice`)
 AUTO_GRID = {
     (50, "break", "narrow", True): "banded",
     (50, "break", "narrow", False): "banded",
@@ -380,8 +399,10 @@ def test_auto_choice_on_cuda_is_jax_choice_on_tpu(cell, decision_graphs,
     allocated) chooses the operator the JAX package chooses on a TPU, and
     keeps the super tiles where the JAX package's cap would refuse them."""
     Q, mode, band, fits = cell
-    assert _choice(decision_graphs, band, Q, mode, "auto", fits,
-                   monkeypatch) == _port_choice("auto", Q, AUTO_GRID[cell])
+    kind, slots_fit = _choice(decision_graphs, band, Q, mode, "auto", fits,
+                              monkeypatch)
+    assert slots_fit == (band == "narrow")
+    assert kind == _port_choice("auto", Q, mode, slots_fit, AUTO_GRID[cell])
 
 
 @pytest.mark.parametrize("backend,Q,mode,band,fits,want", [
@@ -392,16 +413,19 @@ def test_auto_choice_on_cuda_is_jax_choice_on_tpu(cell, decision_graphs,
     ("bsr", 50, "break", "narrow", True, "bsr"),
     ("bsr", 50, "break", "narrow", False, "banded"),
     ("bsr", 50, "make", "narrow", False, "coo"),
+    ("banded", 50, "make", "wide", True, "coo"),
 ])
 def test_explicit_backend_choice_is_jax_choice(backend, Q, mode, band, fits,
                                                want, decision_graphs,
                                                monkeypatch):
     """Explicit backends on a CUDA device, as the JAX package decides them
-    on any platform (``want``): 'banded' falls back to COO in make mode or
-    past 17 windows; 'bsr' keeps the super tiles where the JAX package's
-    cap sends it to banded (break) or COO."""
-    assert _choice(decision_graphs, band, Q, mode, backend, fits,
-                   monkeypatch) == _port_choice(backend, Q, want)
+    on any platform (``want``): 'banded' falls back to COO past 17
+    windows, and the JAX package's in make mode too, where the port keeps
+    it while the band with the candidate slots fits; 'bsr' keeps the super
+    tiles where the JAX package's cap sends it to banded (break) or COO."""
+    kind, slots_fit = _choice(decision_graphs, band, Q, mode, backend, fits,
+                              monkeypatch)
+    assert kind == _port_choice(backend, Q, mode, slots_fit, want)
 
 
 def test_super_tiles_past_the_old_cap_on_cuda():
@@ -433,16 +457,22 @@ def test_auto_on_cpu_is_coo(graph):
 def test_fused_request_on_banded_runs_per_step_like_jax(graph):
     """An f32 fused_steps=10 request on the banded operator (no fused hooks)
     runs the per-step lane, as the JAX package's guard sends it; picks equal
-    JAX's, rob_variation to the f32 lane's rtol 1e-4."""
+    JAX's, rob_variation to the f32 lane's rtol 1e-4. In make mode too,
+    where the JAX package makes on COO: the port's banded sweep equals the
+    JAX package's per-step sweep (its fused lane runs on COO)."""
     A, c, tol32 = graph
-    kw = dict(order="min", tol=tol32, mode="break", backend="banded",
-              fused_steps=10)
-    rj = jax_greedy_krylov(A, 3, 12, c, dtype=jnp.float32, **kw)
-    rt = greedy_krylov(A, 3, 12, c, dtype=torch.float32, device="cpu", **kw)
-    assert rt.operator == "BandedEllOperator"
-    assert rt.fused_accepted == 0
-    np.testing.assert_array_equal(rt.edges, rj.edges)
-    np.testing.assert_allclose(rt.rob_variation, rj.rob_variation, rtol=1e-4)
+    for mode in ("break", "make"):
+        kw = dict(order="min", tol=tol32, mode=mode, backend="banded")
+        rj = jax_greedy_krylov(A, 3, 12, c, dtype=jnp.float32,
+                               fused_steps=10 if mode == "break" else 0,
+                               **kw)
+        rt = greedy_krylov(A, 3, 12, c, dtype=torch.float32, device="cpu",
+                           fused_steps=10, **kw)
+        assert rt.operator == "BandedEllOperator"
+        assert rt.fused_accepted == 0
+        np.testing.assert_array_equal(rt.edges, rj.edges)
+        np.testing.assert_allclose(rt.rob_variation, rj.rob_variation,
+                                   rtol=1e-4)
 
 
 def test_bsr_break_with_shift_matches_the_reference():

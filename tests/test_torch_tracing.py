@@ -175,6 +175,62 @@ def test_candidate_range_and_sweep_counters(graph, monkeypatch, mode):
     assert grew["sweep.slots"] == [2 * (Q + 2) if mode == "make" else 0]
 
 
+@pytest.mark.parametrize("mode", ["break", "make"])
+@pytest.mark.parametrize("backend", ["bsr", "banded", "coo"])
+def test_operator_range_carries_kind_and_slots(graph, backend, mode):
+    """kr:sweep.operator|kind|slots opens once a sweep, inside
+    kr:sweep.build and before its first step: kind the operator built
+    (make mode takes the banded one as break does), slots both triangles of
+    the Q + k candidates in make mode, 0 in break mode."""
+    A, c, tol = graph
+    tracing.enable()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        r = greedy_krylov(A, 2, Q, c, order="min", tol=tol, mode=mode,
+                          dtype=torch.float64, backend=backend,
+                          fused_steps=0, device="cpu")
+    by = {}
+    for rg in ranges(prof):
+        by.setdefault(rg[0].split("|")[0], []).append(rg)
+    (op,) = by["kr:sweep.operator"]
+    slots = 2 * (Q + 2) if mode == "make" else 0
+    assert op[0] == f"kr:sweep.operator|{backend}|{slots}"
+    assert inside(op, by["kr:sweep.build"])
+    assert op[2] <= by["kr:step"][0][1]
+    assert r.operator.startswith({"bsr": "SuperBsrOperator",
+                                  "banded": "BandedEllOperator",
+                                  "coo": "CooMatrix"}[backend])
+
+
+@pytest.mark.parametrize("backend", ["banded", "coo"])
+def test_coo_counter_counts_each_coo_product(graph, monkeypatch, backend):
+    """spmm.launches.coo is there before any product, and grows by one at
+    each CooMatrix product, vector or block, and by none on another
+    operator: a make sweep on the banded operator runs no COO product."""
+    assert "spmm.launches.coo" in tracing.counters()
+    calls = []
+    real = CooMatrix.matmul
+
+    def recorded(self, x):
+        calls.append(x.shape)
+        return real(self, x)
+
+    monkeypatch.setattr(CooMatrix, "matmul", recorded)
+    A, c, tol = graph
+    M = CooMatrix.from_scipy(A, device="cpu")
+    before = tracing.counters()["spmm.launches.coo"]
+    M @ torch.ones(N, dtype=torch.float64)
+    M.matmul(torch.ones(N, 3, dtype=torch.float64))
+    assert tracing.counters()["spmm.launches.coo"] == before + 2
+    calls.clear()
+    before = tracing.counters()["spmm.launches.coo"]
+    greedy_krylov(A, 2, Q, c, order="min", tol=tol, mode="make",
+                  dtype=torch.float64, backend=backend, fused_steps=0,
+                  device="cpu")
+    grew = tracing.counters()["spmm.launches.coo"] - before
+    assert grew == len(calls)
+    assert (grew > 0) == (backend == "coo")
+
+
 @pytest.mark.parametrize("backend", ["bsr", "banded", "coo"])
 def test_operator_bytes_grow_by_each_build(graph, backend):
     """spmm.operator_bytes grows at each sweep build by the bytes of the
